@@ -1,5 +1,6 @@
-"""Fixed-capacity SoA map state (port of coslam_tpu/models/map_state.py:
-`MapState`, `empty_map`, `point_obs_count`).
+"""Fixed-capacity SoA map state (port of coslam_tpu/models/map_state.py,
+whole: `MapState`, `empty_map`, `kf_centers`, `observation_coo`, the
+covisibility functions and `point_obs_count`).
 
 The whole map is a NamedTuple of tensors with validity masks; descriptors
 are int32 tensors holding the reference's uint32 bits.
@@ -77,3 +78,90 @@ def point_obs_count(m: MapState) -> torch.Tensor:
     pt = torch.clamp(m.kf_obs_pt, min=0).reshape(-1).long()
     out = torch.zeros(P, dtype=torch.int32, device=m.pt_pos.device)
     return out.index_add_(0, pt, ok.reshape(-1).to(torch.int32))
+
+
+def kf_centers(m: MapState) -> torch.Tensor:
+    """(K, 3) camera centers C = -R^T t."""
+    R = m.kf_pose[:, :3, :3]
+    t = m.kf_pose[:, :3, 3]
+    return -torch.einsum("kji,kj->ki", R, t)
+
+
+def observation_coo(m: MapState):
+    """Flatten the (K, N) association table into BA-ready COO arrays.
+
+    Returns (obs_kf, obs_pt, obs_uv, obs_level, obs_valid) with O = K*N;
+    obs_pt is clamped to a valid slot (masked by obs_valid)."""
+    K, N = m.kf_obs_pt.shape
+    obs_kf = torch.arange(K, dtype=torch.int32,
+                          device=m.kf_obs_pt.device).repeat_interleave(N)
+    obs_pt = m.kf_obs_pt.reshape(-1)
+    obs_valid = (m.kf_valid[:, None] & m.kf_kp_valid
+                 & (m.kf_obs_pt >= 0)).reshape(-1)
+    safe_pt = torch.clamp(obs_pt, min=0)
+    obs_valid = obs_valid & m.pt_valid[safe_pt.long()]
+    return (obs_kf, safe_pt, m.kf_uv.reshape(-1, 2), m.kf_level.reshape(-1),
+            obs_valid)
+
+
+def _obs_indicator(m: MapState) -> torch.Tensor:
+    """(K, P) f32 0/1: keyframe k observes valid point p."""
+    K, N = m.kf_obs_pt.shape
+    P = m.pt_pos.shape[0]
+    dev = m.pt_pos.device
+    pt = torch.clamp(m.kf_obs_pt, min=0).long()
+    ok = (m.kf_kp_valid & (m.kf_obs_pt >= 0) & m.kf_valid[:, None]
+          & m.pt_valid[pt])
+    flat = (torch.arange(K, device=dev)[:, None] * P + pt).reshape(-1)
+    ind = torch.zeros(K * P, dtype=torch.float32, device=dev)
+    ind.scatter_reduce_(0, flat, ok.reshape(-1).to(torch.float32), "amax",
+                        include_self=True)
+    return ind.reshape(K, P)
+
+
+def covisibility(m: MapState) -> torch.Tensor:
+    """(K, K) shared-map-point counts (reference KeyFrame::UpdateConnections,
+    KeyFrame.cc:289-340) as one matmul of the (K, P) observation indicator;
+    diagonal zeroed."""
+    ind = _obs_indicator(m)
+    w = ind @ ind.T
+    return (w - torch.diag(torch.diag(w))).to(torch.int32)
+
+
+def covisibility_row(m: MapState, k) -> torch.Tensor:
+    """(K,) shared-point counts of keyframe `k` (an int or a 0-d device
+    tensor) against every keyframe: one (K, P) x (P,) matvec."""
+    ind = _obs_indicator(m)
+    K = ind.shape[0]
+    kk = torch.as_tensor(k, device=ind.device).reshape(1).long()
+    w = ind @ ind.index_select(0, kk)[0]
+    own = torch.arange(K, device=ind.device) == kk
+    return torch.where(own, 0.0, w).to(torch.int32)
+
+
+def covisibility_rows(m: MapState, ks: torch.Tensor) -> torch.Tensor:
+    """(C, K) shared-point counts for a subset `ks` of keyframes."""
+    ind = _obs_indicator(m)
+    K = ind.shape[0]
+    ks = ks.long()
+    w = ind.index_select(0, ks) @ ind.T
+    own = ks[:, None] == torch.arange(K, device=ind.device)[None, :]
+    return torch.where(own, 0.0, w).to(torch.int32)
+
+
+def scatter_set(base: torch.Tensor, idx: torch.Tensor,
+                vals: torch.Tensor) -> torch.Tensor:
+    """base.at[idx].set(vals) with the reference's rule for duplicate
+    targets: the LAST source wins (XLA's scatter applies updates in order).
+    `index_put_` on CUDA keeps an arbitrary one, so the winner is chosen
+    first — the highest source index per target, by scatter_reduce("amax")
+    — and gathered.  idx may hold len(base) for "drop"."""
+    L = base.shape[0]
+    idx = idx.long()
+    src = torch.arange(idx.shape[0], device=idx.device)
+    win = torch.full((L + 1,), -1, dtype=torch.int64, device=idx.device)
+    win = win.scatter_reduce(0, idx, src, "amax", include_self=True)[:L]
+    has = win >= 0
+    picked = vals[torch.clamp(win, min=0)]
+    return torch.where(has.reshape((L,) + (1,) * (base.dim() - 1)), picked,
+                       base)

@@ -1,6 +1,6 @@
 """Per-frame tracking stages (port of coslam_tpu/models/tracking.py:
-TrackWithMotionModel, TrackReferenceKeyFrame, TrackLocalMap and the chunked
-steady-state loop `track_chunk`).
+TrackWithMotionModel, TrackReferenceKeyFrame, TrackLocalMap, the chunked
+steady-state loop `track_chunk` and `chain_carry_after_insert`).
 
 Plain functions on tensors.  The reference's `lax.scan` over the two
 motion-model radii is a loop of two (both bodies always run, as in the
@@ -281,7 +281,9 @@ def track_chunk(cfg: SystemConfig, m: MapState, imgs, allow_kf: bool,
     frame, with the constant-velocity state carried between frames.
 
     Returns (new carry, ChunkStep, stacked Frames, per-step kp_pt,
-    per-step pt_visible / pt_found snapshots, per-step kp_depth)."""
+    per-step pt_visible / pt_found snapshots, per-step kp_depth).
+    `mapper_latency` (an int or a 0-d device tensor) overrides the
+    config's keyframe throttle."""
     if cfg.sensor != "mono" or aux_imgs is not None:
         raise NotImplementedError(
             "stereo / RGB-D tracking is not ported yet "
@@ -340,6 +342,33 @@ def track_chunk(cfg: SystemConfig, m: MapState, imgs, allow_kf: bool,
     kp_depths = torch.zeros((len(frames), N), dtype=torch.float32, device=dev)
     return (c, stacked, frames_st, torch.stack(kp_pts), torch.stack(vis_snap),
             torch.stack(found_snap), kp_depths)
+
+
+def chain_carry_after_insert(carry_in: ChunkCarry, m2: MapState, T_chunk,
+                             kp_pts, levels, j1, last, kf_i,
+                             fs) -> ChunkCarry:
+    """The next chunk's carry after an overlapped keyframe insert, with no
+    host readback from the insert.
+
+    The keyframe's local BA moves its pose from the tracked T_chunk[j1] to
+    m2.kf_pose[kf_i]; every pose in the pre-insert frame is
+    right-multiplied by corr = T_raw^-1 @ T_post, which leaves the
+    constant-velocity model unchanged.  When the chunk's last accepted
+    frame IS the keyframe, tracking continues from the keyframe's
+    post-backend observation row; otherwise from that frame's bindings.
+    j1 / last / kf_i / fs are Python ints."""
+    corr = geo.se3_inverse(T_chunk[j1]) @ m2.kf_pose[kf_i]
+    T = T_chunk[last] @ corr       # == m2.kf_pose[kf_i] when last == j1
+    prev = T_chunk[last - 1] if last > 0 else carry_in.T
+    vel = T_chunk[last] @ geo.se3_inverse(prev)   # pre-shift pair: invariant
+    kp_pt = m2.kf_obs_pt[kf_i] if last == j1 else kp_pts[last]
+    dev = T.device
+    return ChunkCarry(
+        T=T, vel=vel, has_vel=_const(True, torch.bool, dev),
+        kp_pt=kp_pt, level=levels[last],
+        frames_since_kf=torch.full((), fs, dtype=torch.int32, device=dev),
+        ref_kf=torch.full((), kf_i, dtype=torch.int32, device=dev),
+        pt_visible=m2.pt_visible, pt_found=m2.pt_found)
 
 
 def track_frame_built(cfg: SystemConfig, m: MapState, frame: Frame,

@@ -38,16 +38,17 @@ def pairwise_hamming(desc_a: torch.Tensor, desc_b: torch.Tensor) -> torch.Tensor
 
 
 def unpack_pm1(desc: torch.Tensor) -> torch.Tensor:
-    """(N, 8) 32-bit words -> (N, 256) float32 in {-1, +1} (bit=1 -> +1)."""
+    """(..., N, 8) 32-bit words -> (..., N, 256) float32 in {-1, +1}
+    (bit=1 -> +1)."""
     shifts = torch.arange(32, dtype=torch.int32, device=desc.device)
-    bits = (desc.to(torch.int32)[:, :, None] >> shifts) & 1
-    return bits.reshape(desc.shape[0], 32 * desc.shape[1]) \
+    bits = (desc.to(torch.int32)[..., None] >> shifts) & 1
+    return bits.reshape(desc.shape[:-1] + (32 * desc.shape[-1],)) \
         .to(torch.float32) * 2.0 - 1.0
 
 
 def pairwise_hamming_pm1(desc_a: torch.Tensor,
                          desc_b: torch.Tensor) -> torch.Tensor:
-    """(N, 8) x (M, 8) -> (N, M) int32, bit-identical to
+    """(..., N, 8) x (..., M, 8) -> (..., N, M) int32, bit-identical to
     `pairwise_hamming` (the reference's `pairwise_hamming_mxu`)."""
-    dot = unpack_pm1(desc_a) @ unpack_pm1(desc_b).T
+    dot = unpack_pm1(desc_a) @ unpack_pm1(desc_b).transpose(-1, -2)
     return ((256.0 - dot) * 0.5).to(torch.int32)

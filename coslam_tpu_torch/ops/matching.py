@@ -31,9 +31,10 @@ class Matches(NamedTuple):
 
 
 def masked_distance_matrix(desc_q, valid_q, desc_t, valid_t, mask=None):
-    """(N, M) Hamming distances with invalid/masked entries set to INF."""
+    """(..., N, M) Hamming distances with invalid/masked entries set to
+    INF (leading batch dimensions broadcast)."""
     d = hamming.pairwise_hamming_pm1(desc_q, desc_t)
-    ok = valid_q[:, None] & valid_t[None, :]
+    ok = valid_q[..., :, None] & valid_t[..., None, :]
     if mask is not None:
         ok = ok & mask
     return torch.where(ok, d, INF)
@@ -42,17 +43,16 @@ def masked_distance_matrix(desc_q, valid_q, desc_t, valid_t, mask=None):
 def best_two(dmat):
     """Row-wise best and second-best distances + best index (first index
     among equal minima)."""
-    best, best_idx = dmat.min(1)
-    d2 = dmat.clone()
-    d2[torch.arange(dmat.shape[0], device=dmat.device), best_idx] = INF
-    return best, d2.amin(1), best_idx
+    best, best_idx = dmat.min(-1)
+    d2 = dmat.scatter(-1, best_idx[..., None], INF)
+    return best, d2.amin(-1), best_idx
 
 
 def _top_k_stable(x, k: int):
     """Values and indices of the k largest entries, lower index first among
     equals (the tie order of jax.lax.top_k)."""
-    vals, idx = torch.sort(x, descending=True, stable=True)
-    return vals[:k], idx[:k]
+    vals, idx = torch.sort(x, dim=-1, descending=True, stable=True)
+    return vals[..., :k], idx[..., :k]
 
 
 def rotation_consistency(angle_q, angle_t, match_idx, match_valid,
@@ -60,25 +60,30 @@ def rotation_consistency(angle_q, angle_t, match_idx, match_valid,
     """Keep only matches whose angle difference falls in the 3 dominant
     orientation-histogram bins (reference ORBmatcher::ComputeThreeMaxima,
     ORBmatcher.cc:1601-1644, incl. the 0.1x maximum cutoffs)."""
-    rot = angle_q - angle_t[match_idx.long()]
+    angle_t = angle_t.expand(match_idx.shape[:-1] + angle_t.shape[-1:])
+    rot = angle_q - torch.gather(angle_t, -1, match_idx.long())
     rot = torch.where(rot < 0, rot + TWO_PI, rot)
     bins = torch.clamp((rot * (histo_length / TWO_PI)).to(torch.int32),
                        0, histo_length - 1)
-    hist = torch.zeros(histo_length, dtype=torch.int32, device=rot.device)
-    hist.index_add_(0, bins.long(), match_valid.to(torch.int32))
+    hist = torch.zeros(bins.shape[:-1] + (histo_length,), dtype=torch.int32,
+                       device=rot.device)
+    hist = hist.scatter_add(-1, bins.long(), match_valid.to(torch.int32))
     top3_val, top3_idx = _top_k_stable(hist, 3)
-    top3_val = top3_val.to(torch.float32)
-    keep1 = bins == top3_idx[0]
-    keep2 = (bins == top3_idx[1]) & (top3_val[1] > 0.1 * top3_val[0])
-    keep3 = (bins == top3_idx[2]) & (top3_val[2] > 0.1 * top3_val[0])
+    top3_val = top3_val.to(torch.float32)[..., None, :]
+    top3_idx = top3_idx[..., None, :]
+    keep1 = bins == top3_idx[..., 0]
+    keep2 = (bins == top3_idx[..., 1]) \
+        & (top3_val[..., 1] > 0.1 * top3_val[..., 0])
+    keep3 = (bins == top3_idx[..., 2]) \
+        & (top3_val[..., 2] > 0.1 * top3_val[..., 0])
     return match_valid & (keep1 | keep2 | keep3)
 
 
 def mutual_filter(dmat, best_idx, valid):
     """Keep (q -> t) only if q is also t's best among queries."""
-    col_best = dmat.argmin(0)
-    n = best_idx.shape[0]
-    return valid & (col_best[best_idx.long()]
+    col_best = dmat.argmin(-2)
+    n = best_idx.shape[-1]
+    return valid & (torch.gather(col_best, -1, best_idx.long())
                     == torch.arange(n, device=dmat.device))
 
 
@@ -87,7 +92,8 @@ def match(desc_q, valid_q, desc_t, valid_t, cfg: MatcherConfig,
           ratio: Optional[float] = None, mutual: bool = False,
           angle_q=None, angle_t=None) -> Matches:
     """Generic one-shot dense matcher; mask: optional (N, M) bool of
-    admissible pairs."""
+    admissible pairs.  Target-side inputs (and the mask) may carry a
+    leading batch dimension: one matcher per target set."""
     dmat = masked_distance_matrix(desc_q, valid_q, desc_t, valid_t, mask)
     best, second, best_idx = best_two(dmat)
     ok = best < (max_dist if max_dist is not None else cfg.th_low)

@@ -1,12 +1,13 @@
-"""Map checkpoint / resume (port of coslam_tpu/utils/checkpoint.py:
-`save_map`, `load_map`, `load_system`).
+"""Map checkpoint / resume (port of coslam_tpu/utils/checkpoint.py, whole:
+`save_map`, `load_map`, `save_system`, `load_system`).
 
-This is the converter from the JAX package's state to the port's: a
-checkpoint written by `coslam_tpu.utils.checkpoint.save_system` is an npz of
-numpy arrays; loading it here gives device tensors.  uint32 descriptors
-become int32 tensors with the same bits (`.view(np.int32)`).  The
-place-recognition `db_*` extras are kept as numpy on the System
-(`System.db_state`) until relocalization is ported.
+Files are the JAX package's layout, so either package loads what the other
+wrote: an npz of numpy arrays, descriptors as uint32 (int32 tensors with the
+same bits in the port, `.view(np.int32)`).  `load_system` restores the map,
+the tracking state, the host mirrors of the slot counters, the
+place-recognition database (BoW rows and vocabulary, which is then
+authoritative) and, when the saved capacities differ from the System's
+config, widens the config to them.
 """
 
 from __future__ import annotations
@@ -52,19 +53,46 @@ def load_map(path: str, device="cpu"):
     return ms.MapState(**fields), extra
 
 
+def save_system(path: str, system) -> None:
+    """Checkpoint a System (map + tracking state) for resume."""
+    extra = {
+        "last_T": system.last_T,
+        "velocity": system.velocity if system.velocity is not None
+        else np.zeros((0,)),
+        "last_kp_pt": system.last_kp_pt.cpu().numpy()
+        if system.last_kp_pt is not None else np.zeros((0,)),
+        "last_level": system.last_level.cpu().numpy()
+        if system.last_level is not None else np.zeros((0,)),
+        "frames_since_kf": system.frames_since_kf,
+        "ref_kf_matches": system.ref_kf_matches,
+        "state_ok": 1 if system.state == "OK" else 0,
+        "db_bows": system.db.bows,
+        "db_has": system.db.has,
+        "db_vocab": system.db.vocab.cpu().numpy().view(np.uint32),
+        # capacities may have grown past the construction-time cfg
+        # (models/compaction.py grow)
+        "max_keyframes": system.cfg.mapper.max_keyframes,
+        "max_points": system.cfg.mapper.max_points,
+    }
+    save_map(path, system.map, extra)
+
+
 def load_system(path: str, system) -> None:
-    """Restore a checkpoint into an already-constructed System (same cfg),
-    on the System's device."""
+    """Restore a checkpoint into an already-constructed System, on the
+    System's device."""
     m, extra = load_map(path, system.device)
     system.map = m
-    system._kf_pose_host = None
+    system._kf_pose_dirty = True
     system._host_n_kf = int(m.n_kf)
+    system._host_n_pt = int(m.n_pt)
+    # restore (possibly grown) capacities so the watermark logic and the
+    # DB match the restored array shapes
     K_saved = int(extra.get("max_keyframes", m.kf_pose.shape[0]))
     P_saved = int(extra.get("max_points", m.pt_pos.shape[0]))
     if (K_saved != system.cfg.mapper.max_keyframes
             or P_saved != system.cfg.mapper.max_points):
-        system.cfg = system.cfg.replace(mapper=dataclasses.replace(
-            system.cfg.mapper, max_keyframes=K_saved, max_points=P_saved))
+        system._set_cfg(system.cfg.replace(mapper=dataclasses.replace(
+            system.cfg.mapper, max_keyframes=K_saved, max_points=P_saved)))
     system.last_T = extra["last_T"].astype(np.float32)
     system.velocity = (extra["velocity"].astype(np.float32)
                        if extra["velocity"].size else None)
@@ -76,5 +104,6 @@ def load_system(path: str, system) -> None:
     system.frames_since_kf = int(extra["frames_since_kf"])
     system.ref_kf_matches = int(extra["ref_kf_matches"])
     system.state = "OK" if int(extra["state_ok"]) else "NOT_INITIALIZED"
-    system.db_state = {k[3:]: v for k, v in extra.items()
-                       if k.startswith("db_")}
+    system.db.bows = extra["db_bows"]
+    system.db.has = extra["db_has"]
+    system.db.set_vocabulary(extra["db_vocab"])

@@ -109,3 +109,34 @@ def exp_se3(xi: torch.Tensor) -> torch.Tensor:
 def transform_points(T: torch.Tensor, pts: torch.Tensor) -> torch.Tensor:
     """Apply (..., 4, 4) to points (..., N, 3) -> (..., N, 3)."""
     return pts @ rot(T).transpose(-1, -2) + trans(T)[..., None, :]
+
+
+def rot_to_quat(R: torch.Tensor) -> torch.Tensor:
+    """Rotation (..., 3, 3) -> unit quaternion (..., 4) as (w, x, y, z):
+    Shepperd's method, branchless (the reference's `rot_to_quat`)."""
+    m00, m01, m02 = R[..., 0, 0], R[..., 0, 1], R[..., 0, 2]
+    m10, m11, m12 = R[..., 1, 0], R[..., 1, 1], R[..., 1, 2]
+    m20, m21, m22 = R[..., 2, 0], R[..., 2, 1], R[..., 2, 2]
+    tr = m00 + m11 + m22
+
+    def norm4(w, x, y, z):
+        q = torch.stack([w, x, y, z], dim=-1)
+        return q / (torch.linalg.vector_norm(q, dim=-1, keepdim=True) + _EPS)
+
+    # four candidate decompositions; pick the numerically best
+    s0 = torch.sqrt(torch.clamp(1.0 + tr, min=_EPS)) * 2
+    q0 = norm4(0.25 * s0, (m21 - m12) / s0, (m02 - m20) / s0,
+               (m10 - m01) / s0)
+    s1 = torch.sqrt(torch.clamp(1.0 + m00 - m11 - m22, min=_EPS)) * 2
+    q1 = norm4((m21 - m12) / s1, 0.25 * s1, (m01 + m10) / s1,
+               (m02 + m20) / s1)
+    s2 = torch.sqrt(torch.clamp(1.0 - m00 + m11 - m22, min=_EPS)) * 2
+    q2 = norm4((m02 - m20) / s2, (m01 + m10) / s2, 0.25 * s2,
+               (m12 + m21) / s2)
+    s3 = torch.sqrt(torch.clamp(1.0 - m00 - m11 + m22, min=_EPS)) * 2
+    q3 = norm4((m10 - m01) / s3, (m02 + m20) / s3, (m12 + m21) / s3,
+               0.25 * s3)
+    c0 = (tr > 0)[..., None]
+    c1 = ((m00 > m11) & (m00 > m22))[..., None]
+    c2 = (m11 > m22)[..., None]
+    return torch.where(c0, q0, torch.where(c1, q1, torch.where(c2, q2, q3)))

@@ -1,9 +1,16 @@
-"""Where the time goes in the port's localization slice on one GPU.
+"""Where the time goes in the port's smoke paths on one GPU.
 
-Runs the chip_smoke.py slice (resume coslam_tpu_torch/assets/smoke_map.npz,
-localization mode, run_sequence over frames 80-119, 640x480 / 1000
-features / P=32768) once to warm up, then once under torch.profiler, and
-prints:
+Default: the chip_smoke.py localization slice (resume
+coslam_tpu_torch/assets/smoke_map.npz, localization mode, run_sequence over
+frames 80-119, 640x480 / 1000 features / P=32768).  With --mapping: the
+chip_smoke.py mapping run (frames 0-119 from the first frame, K=64 /
+P=16384, the JAX run's initialisation draws injected), plus a split of the
+wall time into initialisation attempts, backend inserts and the rest
+(synchronised host clock around each stage) and the Python lines where the
+run blocks on the device (CUDA sync debug mode).
+
+Each path runs once to warm up, once unprofiled, then once under
+torch.profiler, and the script prints:
   * wall time and frames/s of the profiled run (host clock, synchronised);
   * device busy time (sum of kernel times; one stream, so no overlap) and
     the device idle share of the wall time;
@@ -11,21 +18,95 @@ prints:
   * the count of host-side sync points the profiler saw (stream
     synchronizations, memcpys, .item() calls).
 
-    python3 scripts/profile_torch_slice.py
+    python3 scripts/profile_torch_slice.py [--mapping]
 """
 
 from __future__ import annotations
 
+import collections
 import os
 import sys
 import time
+import warnings
 
+import numpy as np
 import torch
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 sys.path.insert(0, ROOT)
 
-from chip_smoke import ASSETS, LOC_FRAMES, smoke_config  # noqa: E402
+from chip_smoke import (ASSETS, LOC_FRAMES, MAPPING_FRAMES,  # noqa: E402
+                        mapping_config, smoke_config)
+
+
+def mapping_runner(scene, traj):
+    """run() for the mapping path, and the split / sync-site report."""
+    from coslam_tpu_torch.models import local_mapping as lm
+    from coslam_tpu_torch.models import system as sysmod
+    from coslam_tpu_torch.utils import synthetic
+
+    cfg = mapping_config()
+    seq = synthetic.render_sequence(
+        cfg.camera, synthetic.Trajectory(traj.poses_cw[:MAPPING_FRAMES]),
+        scene)
+    exp = np.load(os.path.join(ASSETS, "smoke_mapping_expected.npz"))
+    draws = {int(f): d.astype(np.int64)
+             for f, d in zip(exp["draw_frames"], exp["draws"])}
+
+    def run():
+        s = sysmod.System(cfg, device="cuda", enable_loop_closing=False)
+        s.init_draws = draws
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        s.run_sequence(seq)
+        torch.cuda.synchronize()
+        return time.perf_counter() - t0
+
+    def split():
+        spent = collections.Counter()
+        calls = collections.Counter()
+        inner = {"init": sysmod._init_attempt, "insert": lm.backend_insert}
+
+        def timed(name):
+            def fn(*a, **kw):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                out = inner[name](*a, **kw)
+                torch.cuda.synchronize()
+                spent[name] += time.perf_counter() - t0
+                calls[name] += 1
+                return out
+            return fn
+
+        sysmod._init_attempt = timed("init")
+        lm.backend_insert = timed("insert")
+        try:
+            wall = run()
+        finally:
+            sysmod._init_attempt = inner["init"]
+            lm.backend_insert = inner["insert"]
+        rest = wall - spent["init"] - spent["insert"]
+        print(f"split run (synchronised around each stage): {wall:.4f} s; "
+              f"initialisation {spent['init']:.4f} s over {calls['init']} "
+              f"attempts ({1e3 * spent['init'] / max(calls['init'], 1):.2f} "
+              f"ms each); backend inserts {spent['insert']:.4f} s over "
+              f"{calls['insert']} ({1e3 * spent['insert'] / max(calls['insert'], 1):.2f} "
+              f"ms each); tracking and driver {rest:.4f} s")
+        sites = collections.Counter()
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            with warnings.catch_warnings(record=True) as caught:
+                warnings.simplefilter("always")
+                run()
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+        for w in caught:
+            if "synchroniz" in str(w.message):
+                sites[f"{os.path.relpath(w.filename, ROOT)}:{w.lineno}"] += 1
+        print(f"host syncs seen by CUDA sync debug mode: "
+              f"{sum(sites.values())}; by line: {sites.most_common(12)}")
+
+    return run, split, MAPPING_FRAMES
 
 
 def main() -> int:
@@ -55,11 +136,16 @@ def main() -> int:
         torch.cuda.synchronize()
         return time.perf_counter() - t0
 
+    n = hi - lo
+    split = None
+    if "--mapping" in sys.argv:
+        run, split, n = mapping_runner(scene, traj)
     run()
     plain_wall = run()
+    if split is not None:
+        split()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         wall = run()
-    n = hi - lo
     events = prof.key_averages()
     busy_us = sum(e.self_device_time_total for e in events
                   if e.device_type == torch.autograd.DeviceType.CUDA)

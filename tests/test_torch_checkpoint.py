@@ -79,9 +79,13 @@ def test_load_system_from_reference_checkpoint(rng, tmp_path):
                                   np.asarray(js.last_level))
     assert (ts.frames_since_kf, ts.ref_kf_matches) == (5, 77)
     assert ts._host_n_kf == int(js.map.n_kf)
-    assert set(ts.db_state) == {"bows", "has", "vocab"}
-    np.testing.assert_array_equal(ts.db_state["vocab"],
+    # the repaired resume: point-counter mirror and a real KeyFrameDatabase
+    assert ts._host_n_pt == int(js.map.n_pt)
+    np.testing.assert_array_equal(ts.db.bows, js.db.bows)
+    np.testing.assert_array_equal(ts.db.has, js.db.has)
+    np.testing.assert_array_equal(ts.db.vocab.numpy().view(np.uint32),
                                   np.asarray(js.db.vocab))
+    assert ts.db._external_vocab and ts.db.n_words == js.db.n_words
 
 
 def test_port_map_loads_back_into_reference(rng, tmp_path):
@@ -112,3 +116,53 @@ def test_map_state_functions(rng, name):
         else np.array(v)) for k, v in jmap._asdict().items()})
     np.testing.assert_array_equal(tms.point_obs_count(tmap).numpy(),
                                   np.asarray(jms.point_obs_count(jmap)))
+
+
+def test_load_system_widens_capacities_and_db(rng, tmp_path):
+    """A checkpoint whose capacities grew past the System's config widens
+    the config and the database (reference checkpoint.py:76-82)."""
+    jc = _cfg(jcfg)
+    js = JSystem(jc, enable_loop_closing=False)
+    js.map = _random_map(rng, jc)
+    js.state = "OK"
+    path = str(tmp_path / "map.npz")
+    jck.save_system(path, js)
+    small = tcfg.SystemConfig(
+        extractor=tcfg.ExtractorConfig(**SMALL["extractor"]),
+        mapper=tcfg.MapperConfig(max_keyframes=4, max_points=256))
+    ts = TSystem(small)
+    assert ts.db.bows.shape[0] == 4
+    tck.load_system(path, ts)
+    assert ts.cfg.mapper.max_keyframes == 8
+    assert ts.cfg.mapper.max_points == 512
+    assert ts.db.cfg is ts.cfg and ts.db.bows.shape[0] == 8
+
+
+def test_save_system_loads_into_reference(rng, tmp_path):
+    """A System saved by the port resumes in coslam_tpu with the same map,
+    tracking state and database."""
+    jc = _cfg(jcfg)
+    js = JSystem(jc, enable_loop_closing=False)
+    js.map = _random_map(rng, jc)
+    js.state = "OK"
+    js.last_T = rng.normal(0, 1, (4, 4)).astype(np.float32)
+    js.last_kp_pt = jnp.asarray(rng.integers(-1, 500, 64).astype(np.int32))
+    js.last_level = jnp.asarray(rng.integers(0, 8, 64).astype(np.int32))
+    js.db.bows[:] = rng.uniform(size=js.db.bows.shape).astype(np.float32)
+    js.db.has[:] = True
+    path = str(tmp_path / "j.npz")
+    jck.save_system(path, js)
+    ts = TSystem(_cfg(tcfg))
+    tck.load_system(path, ts)
+    path2 = str(tmp_path / "t.npz")
+    tck.save_system(path2, ts)
+    back = JSystem(jc, enable_loop_closing=False)
+    jck.load_system(path2, back)
+    _assert_maps_equal(ts.map, back.map)
+    np.testing.assert_array_equal(back.last_T, js.last_T)
+    assert back.velocity is None and back.state == "OK"
+    np.testing.assert_array_equal(np.asarray(back.last_kp_pt),
+                                  np.asarray(js.last_kp_pt))
+    np.testing.assert_array_equal(back.db.bows, js.db.bows)
+    np.testing.assert_array_equal(np.asarray(back.db.vocab),
+                                  np.asarray(js.db.vocab))

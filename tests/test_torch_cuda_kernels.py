@@ -63,6 +63,7 @@ def _match_inputs(gen, dev, n, m):
 
 
 @pytest.mark.parametrize("n,m", [(1024, 1024), (32768, 1024), (1024, 32768),
+                                 (16384, 1024), (1024, 16384),
                                  (100, 3000), (7, 0)])
 def test_masked_match(dev, gen, n, m):
     a = _match_inputs(gen, dev, n, m)

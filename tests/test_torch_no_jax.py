@@ -12,7 +12,10 @@ SLICE = ["config.py", "utils/geometry.py", "utils/camera.py",
          "utils/synthetic.py", "utils/evaluation.py", "utils/checkpoint.py",
          "ops/pyramid.py", "ops/fast.py", "ops/orb.py", "ops/hamming.py",
          "ops/matching.py", "optim/pose_opt.py", "models/frame.py",
-         "models/map_state.py", "models/tracking.py", "models/system.py"]
+         "models/map_state.py", "models/tracking.py", "models/system.py",
+         "ops/bow.py", "ops/twoview.py", "optim/ba.py",
+         "models/keyframe_db.py", "models/loop_closing.py",
+         "models/local_mapping.py", "models/compaction.py", "utils/io.py"]
 
 _IMPORT_ALL = """
 import importlib, pkgutil, sys
