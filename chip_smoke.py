@@ -7,9 +7,15 @@ lines):
 
   1. card: name and power limit (nvidia-smi), CUDA kernel build time;
   2. kernels: each hand-written CUDA kernel against its plain PyTorch twin on
-     the card, at the shapes the tracking and mapping paths give it (K2 at
-     both map capacities, 32768 and 16384 point slots), with kernel and
-     twin times (CUDA events, after a warm-up);
+     the card, at the shapes the tracking and mapping paths give it (the
+     inputs of coslam_tpu_torch/utils/kernel_cases.py: K2 at both map
+     capacities, 32768 and 16384 point slots, on dense inputs and on
+     map-like ones whose table is mostly empty, then on the edges of its
+     code paths; K3 below its block size, at 1024 with most and with 215
+     observations carrying information, and above its register path), with
+     the kernel's device time (its duration in torch.profiler: back-to-back
+     calls are host-bound), the twin's time (CUDA events) and the card's
+     bound for the work these inputs need;
   3. slice: resume the saved map coslam_tpu_torch/assets/smoke_map.npz,
      activate localization mode and `run_sequence` over frames 80-119 of the
      synthetic reference workload (640x480, 1000 features, map capacity
@@ -33,8 +39,14 @@ lines):
      host syncs per keyframe.
 
 The second-to-last line is a JSON object with each kernel's launches (in
-the mapping run; `launches_by_path` has both runs), error and times; the
-last line is {"ok": true, "device": {...}}.
+the mapping run; `launches_by_path` and `launches_per_frame` have both
+runs), error, times and bound.  K2's and K3's headline numbers are those of
+the inputs most like the paths' own (the mapping path's pair of launches on
+a map-like table; 215 of 1024 observations with information); the other
+shapes stand under `ms_by_shape`, `bound_ms_by_shape` and `dense`.
+`prev_ms` is null: an earlier design's time is taken by
+scripts/compare_torch_kernels.py, not here.  The last line is {"ok": true,
+"device": {...}}.
 """
 
 from __future__ import annotations
@@ -63,6 +75,10 @@ MAPPING_INIT_WINDOW = 3
 # camera-centre bar after similarity alignment to the JAX run, in the JAX
 # map's units: 3x the CPU port's divergence on this run (PERF.md, PR 2)
 MAPPING_CENTRE_BAR = 0.025
+# Published peaks of one H100 SXM: f32 outside the tensor cores (integer
+# operations are counted at the same rate) and device memory.
+PEAK_OPS_PER_S = 67e12
+PEAK_BYTES_PER_S = 3.35e12
 
 
 def fail(msg: str) -> None:
@@ -88,6 +104,42 @@ def time_cuda(fn, reps: int, warmup: int = 2) -> float:
     stop.record()
     torch.cuda.synchronize()
     return start.elapsed_time(stop) / reps
+
+
+def kernel_ms(fn, tag: str, reps: int = 50) -> float:
+    """Mean device milliseconds per call of `fn` spent in kernel `tag` (its
+    name in the launch counters and in its kernel's name), from
+    torch.profiler's kernel durations.  Every launch is one kernel, so the
+    mean duration of the kernels the profiler recorded times the launches a
+    call makes is the call's time even where the profiler dropped some."""
+    from torch.profiler import ProfilerActivity, profile
+    from coslam_tpu_torch.ops import cuda_kernels as ck
+    for _ in range(3):
+        fn()
+    torch.cuda.synchronize()
+    launched = ck.LAUNCHES[tag]
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    launched = ck.LAUNCHES[tag] - launched
+    events = [e for e in prof.key_averages() if tag in e.key
+              and e.device_type == torch.autograd.DeviceType.CUDA]
+    us, seen = (sum(e.self_device_time_total for e in events),
+                sum(e.count for e in events))
+    check(us > 0, f"the profiler saw no kernel named *{tag}*")
+    if seen != launched:
+        print(f"[profiler] recorded {seen} of {launched} {tag} kernels",
+              flush=True)
+    return us / seen * launched / reps / 1e3
+
+
+def bound(ops: float, nbytes: float):
+    """(least ms the card could take, what bounds it)."""
+    t_ops, t_bytes = ops / PEAK_OPS_PER_S, nbytes / PEAK_BYTES_PER_S
+    return 1e3 * max(t_ops, t_bytes), \
+        "operations" if t_ops >= t_bytes else "bytes"
 
 
 def smoke_config():
@@ -126,13 +178,21 @@ def phase_card():
 
 
 def phase_kernels(frame_img: np.ndarray, cfg):
-    """Each kernel against its plain twin at the slice's shapes."""
+    """Each kernel against its plain twin at the main paths' shapes, with
+    its device time beside the card's bound for the same work."""
     from coslam_tpu_torch.ops import cuda_kernels as ck
     from coslam_tpu_torch.ops import pyramid
+    from coslam_tpu_torch.utils import kernel_cases as kc
 
     dev = torch.device("cuda")
-    rng = np.random.default_rng(0)
+    rng = np.random.default_rng(0)          # the timed cases, in kc's order
+    edge_rng = np.random.default_rng(1)
     rows = []
+
+    def report(tag, ms, plain, bound_ms, bound_by):
+        print(f"[{tag}] {ms * 1e3:.2f} us kernel, {plain:.4f} ms plain; bound "
+              f"{bound_ms * 1e3:.3f} us by {bound_by}: bound / time = "
+              f"{bound_ms / ms:.4f}", flush=True)
 
     # K1 on all 8 levels of a rendered 640x480 frame
     levels = [l.contiguous() for l in pyramid.build_pyramid(
@@ -144,109 +204,180 @@ def phase_kernels(frame_img: np.ndarray, cfg):
         e = float((got - ref)[8:-8, 8:-8].abs().max())
         check(e <= 1e-5, f"K1 level {lvl} {tuple(img.shape)}: max err {e}")
         err = max(err, e)
-    ms = time_cuda(lambda: [ck.fast_score_nms(l) for l in levels], 50)
+    ms = kernel_ms(lambda: [ck.fast_score_nms(l) for l in levels],
+                   "fast_score_nms")
     plain = time_cuda(lambda: [ck.fast_score_nms_plain(l) for l in levels], 20)
+    # per pixel: 16 ring reads, 32 threshold tests, the 16 arcs of 9 with
+    # their min / max for the score, the 3x3 maximum: ~300 operations;
+    # one f32 read and one written
+    px = sum(l.numel() for l in levels)
+    b_ms, b_by = bound(300.0 * px, 8.0 * px)
     print(f"[K1 fast_score_nms] 8 levels {tuple(levels[0].shape)}.."
-          f"{tuple(levels[-1].shape)}: interior max err {err:g} (atol 1e-5); "
-          f"{ms:.4f} ms kernel vs {plain:.4f} ms plain per frame", flush=True)
+          f"{tuple(levels[-1].shape)}: interior max err {err:g} (atol 1e-5)")
+    report("K1 fast_score_nms, one frame", ms, plain, b_ms, b_by)
     rows.append(dict(name="fast_score_nms", route="cuda",
                      source="coslam_tpu_torch/csrc/fast_score_nms.cu",
                      replaces=f"{TPU_KERNELS}:97", shape="8-level pyramid of "
-                     "480x640", max_abs_err=err, ms=ms, plain_ms=plain))
+                     "480x640", max_abs_err=err, ms=ms, plain_ms=plain,
+                     bound_ms=b_ms, bound_by=b_by, library_ms=None))
 
-    # K2 at the motion-model and local-map shapes, level gates and r2_t on
-    def match_inputs(n, m):
-        dq = rng.integers(-2 ** 31, 2 ** 31, (n, 8), dtype=np.int64)
-        dt = rng.integers(-2 ** 31, 2 ** 31, (m, 8), dtype=np.int64)
-        k = min(n, m) // 2
-        dt[:k] = dq[:k] ^ (1 << rng.integers(0, 31, (k, 8)))
-        uq = rng.uniform(0, 640, (n, 2))
-        ut = rng.uniform(0, 640, (m, 2))
-        ut[:k] = uq[:k] + rng.normal(0, 4, (k, 2))
-        f32 = lambda a: torch.as_tensor(np.asarray(a, np.float32), device=dev)
-        i32 = lambda a: torch.as_tensor(a.astype(np.int32), device=dev)
-        b = lambda a: torch.as_tensor(a, device=dev)
-        return (i32(dq), f32(uq), f32(rng.uniform(10, 60, n) ** 2),
-                b(rng.uniform(size=n) > 0.1), i32(dt), f32(ut),
-                b(rng.uniform(size=m) > 0.1)), dict(
-            level_q=f32(rng.integers(0, 8, n)),
-            level_t=f32(rng.integers(0, 8, m)), level_lo=-1, level_hi=1,
-            r2_t=f32(rng.uniform(10, 60, m) ** 2))
-
+    # K2 with the octave gate and per-target radii on, at the inputs of
+    # kernel_cases (scripts/compare_torch_kernels.py times the same ones)
     def match_plain(args, kw):
-        dq, uq, r2, vq, dt, ut, vt = args
-        return ck.masked_match_plain(dq, uq, r2, vq, kw["level_q"], dt, ut, vt,
-                                     kw["r2_t"], kw["level_t"], True,
-                                     kw["level_lo"], kw["level_hi"])
+        return kc.match_plain(ck, args, kw)
 
-    err = 0
-    times = {}
-    for n, m in ((1024, 1024), (32768, 1024), (1024, 32768), (16384, 1024),
-                 (1024, 16384)):
-        args, kw = match_inputs(n, m)
+    def match_check(name, args, kw):
         got = ck.masked_match(*args, **kw)
         ref = match_plain(args, kw)
-        check(torch.equal(got[0], ref[0]), f"K2 {n}x{m}: best differs")
-        check(torch.equal(got[1], ref[1]), f"K2 {n}x{m}: second differs")
+        check(torch.equal(got[0], ref[0]), f"K2 {name}: best differs")
+        check(torch.equal(got[1], ref[1]), f"K2 {name}: second differs")
         has = ref[0] < ck.INF_I32
-        check(torch.equal(got[2][has], ref[2][has]), f"K2 {n}x{m}: idx differs")
-        check(bool((got[2][~has] == -1).all()), f"K2 {n}x{m}: idx not -1")
-        n_has = int(has.sum())
-        ms = time_cuda(lambda: ck.masked_match(*args, **kw), 20)
+        check(torch.equal(got[2][has], ref[2][has]), f"K2 {name}: idx differs")
+        check(bool((got[2][~has] == -1).all()), f"K2 {name}: idx not -1")
+        return int(has.sum())
+
+    def match_bound(args, kw):
+        """The gate (~8 operations) on every pair of a valid query and a
+        valid target, the distance (8 xor, 8 popcount, 7 adds, the update:
+        ~24) on the pairs that pass it; every input row and output once."""
+        dq, uq, r2, vq, dt, ut, vt = args
+        n, m = dq.shape[0], dt.shape[0]
+        passing = 0
+        for s0 in range(0, n, 4096):
+            sl = slice(s0, s0 + 4096)
+            d = uq[sl, None, :] - ut[None, :, :]
+            d2 = d[..., 0] * d[..., 0] + d[..., 1] * d[..., 1]
+            dl = kw["level_t"][None, :] - kw["level_q"][sl, None]
+            ok = (d2 <= r2[sl, None]) & (d2 <= kw["r2_t"][None, :]) \
+                & vq[sl, None] & vt[None, :] \
+                & (dl >= kw["level_lo"]) & (dl <= kw["level_hi"])
+            passing += int(ok.sum())
+        ops = 8.0 * int(vq.sum()) * int(vt.sum()) + 24.0 * passing
+        nbytes = 49.0 * (n + m) + 12.0 * n
+        return bound(ops, nbytes)
+
+    def match_row(names):
+        """(kernel ms, plain ms, bound ms, what bounds it) of launches made
+        one after the other: the times add, the larger bound names it."""
+        ts = [times[k] for k in names]
+        return tuple(sum(t[i] for t in ts) for i in range(3)) \
+            + (max(ts, key=lambda t: t[2])[3],)
+
+    times = {}
+    for name, n, m, nvq, nvt in kc.MATCH_CASES:
+        args, kw = kc.match_inputs(rng, dev, n, m, nvq, nvt)
+        n_has = match_check(name, args, kw)
+        ms = kernel_ms(lambda: ck.masked_match(*args, **kw), "masked_match")
         plain = time_cuda(lambda: match_plain(args, kw), 5)
-        times[(n, m)] = (ms, plain)
-        print(f"[K2 masked_match] {n}x{m}: best/second/idx equal ({n_has} "
-              f"queries matched); {ms:.4f} ms kernel vs {plain:.4f} ms plain",
-              flush=True)
-    ms = times[(16384, 1024)][0] + times[(1024, 16384)][0]
-    plain = times[(16384, 1024)][1] + times[(1024, 16384)][1]
+        b_ms, b_by = match_bound(args, kw)
+        times[name] = (ms, plain, b_ms, b_by)
+        print(f"[K2 masked_match] {name}: best/second/idx equal ({n_has} "
+              f"queries matched)")
+        report(f"K2 masked_match {name}", ms, plain, b_ms, b_by)
+
+    # K3 with planted outliers, at the inputs of kernel_cases.  The bound
+    # counts the observations that carry information: rounds * (iters + 1)
+    # + 1 passes of ~110 operations on each (the 40 solves are ~350 each
+    # and do not count beside them); every input and output once.
+    limit = ck._lib().coslam_pose_opt_lm_register_limit()
+    k3 = {}
+    for name, n, n_live in kc.POSE_CASES:
+        check((n > limit) == (n == 3000), f"K3 register limit {limit}")
+        targs, kw, Tgt = kc.pose_inputs(rng, dev, n, n_live)
+        Tk, ik = ck.pose_opt_lm(*targs, **kw)
+        Tp, ip = ck.pose_opt_lm_plain(*targs, **kw)
+        e = float((Tk - Tp).abs().max())
+        n_diff = int((ik != ip).sum())
+        check(e <= 1e-3, f"K3 {name}: T differs by {e}")
+        check(n_diff <= 5, f"K3 {name}: inlier masks differ in {n_diff}")
+        # 0.5 px of noise on ~200 points leaves more pose error than on 1024
+        check(float(np.abs(Tk.cpu().numpy() - Tgt).max())
+              < (5e-3 if name in ("N=1024", "N=3000") else 2e-2),
+              f"K3 {name}: pose not recovered")
+        ms = kernel_ms(lambda: ck.pose_opt_lm(*targs, **kw), "pose_opt_lm")
+        plain = time_cuda(lambda: ck.pose_opt_lm_plain(*targs, **kw), 3, 1)
+        live = int((targs[3] > 0).sum())
+        passes = kw["rounds"] * (kw["iters"] + 1) + 1
+        b_ms, b_by = bound(110.0 * live * passes, 25.0 * n + 128)
+        k3[name] = (ms, plain, b_ms, b_by, e, live)
+        print(f"[K3 pose_opt_lm] {name} ({live} with information): T max err "
+              f"{e:g} (1e-3), inlier masks differ in {n_diff} (<= 5)")
+        report(f"K3 pose_opt_lm {name}, 4x10 LM", ms, plain, b_ms, b_by)
+    # the row's headline is what tracking hands over: 1024 slots, 215 matched
+    ms, plain, b_ms, b_by, e, live = k3[kc.POSE_MAIN_PATH]
+    k3_row = dict(name="pose_opt_lm", route="cuda",
+                  source="coslam_tpu_torch/csrc/pose_opt_lm.cu",
+                  replaces=f"{TPU_KERNELS}:464",
+                  shape=f"N=1024 ({live} with information), 4x10 LM",
+                  max_abs_err=max(v[4] for v in k3.values()), ms=ms,
+                  plain_ms=plain, bound_ms=b_ms, bound_by=b_by,
+                  library_ms=None,
+                  ms_by_shape={k: v[0] for k, v in k3.items()},
+                  bound_ms_by_shape={k: v[2] for k, v in k3.items()})
+
+    # the edges of the kernel's code paths
+    for name, n, m, nvq, nvt in (
+            ("all targets invalid", 1024, 4096, None, 0),
+            ("all queries invalid", 4096, 1024, 0, None),
+            ("ragged, lanes share a query", 1000, 3001, None, None),
+            ("ragged, a thread per query", 5000, 777, None, None),
+            ("one valid target in the last tile", 300, 16384, None, None),
+            ("no targets", 7, 0, None, None)):
+        args, kw = kc.match_inputs(edge_rng, dev, n, m, nvq, nvt)
+        if name.startswith("one valid"):
+            vt = torch.zeros(m, dtype=torch.bool, device=dev)
+            vt[m - 3] = True               # and query 5 sees it
+            args[1][5] = args[5][m - 3]
+            args[3][5] = True
+            kw["r2_t"][m - 3] = 1e6
+            kw["level_q"][5] = kw["level_t"][m - 3]
+            args = args[:6] + (vt,)
+        n_has = match_check(name, args, kw)
+        empty = "invalid" in name or m == 0
+        check((n_has == 0) == empty, f"K2 {name}: {n_has} matched")
+        print(f"[K2 masked_match] edge {n}x{m} ({name}): equal to the twin, "
+              f"{n_has} queries matched", flush=True)
+    # a caller without octaves or per-target radii, and the reverse pass's
+    # query side without a radius (null pointers in the kernel)
+    args, kw = kc.match_inputs(edge_rng, dev, 2048, 1024)
+    got = ck.masked_match(args[0], args[1], None, *args[3:])
+    big = torch.full((2048,), 1e18, device=dev)
+    zq, zt = torch.zeros(2048, device=dev), torch.zeros(1024, device=dev)
+    ref = ck.masked_match_plain(args[0], args[1], big, args[3], zq, args[4],
+                                args[5], args[6], big[:1024], zt, False,
+                                -1e9, 1e9)
+    check(all(torch.equal(g, r) for g, r in zip(got[:2], ref[:2])),
+          "K2 without optional inputs: best / second differ")
+    print("[K2 masked_match] 2048x1024 without radii and octaves: equal to "
+          "the twin", flush=True)
+
+    # the row's headline is the mapping path's pair (local-map search and
+    # whole-map fuse) on a table filled as the path fills it; the same pair
+    # with 90% of either side valid stands beside it
+    ms, plain, b_ms, b_by = match_row(kc.MATCH_MAPPING_PAIR)
+    d_ms, d_plain, d_b_ms, d_b_by = match_row(kc.MATCH_MAPPING_PAIR_DENSE)
+    report("K2 masked_match, the mapping path's pair, map-like", ms, plain,
+           b_ms, b_by)
+    report("K2 masked_match, the mapping path's pair, dense", d_ms, d_plain,
+           d_b_ms, d_b_by)
     rows.append(dict(name="masked_match", route="cuda",
                      source="coslam_tpu_torch/csrc/masked_match.cu",
                      replaces=f"{TPU_KERNELS}:216", shape="mapping path's "
-                     "local-map search and whole-map fuse: 16384x1024 "
-                     "forward + 1024x16384 reverse",
-                     max_abs_err=err, ms=ms, plain_ms=plain))
-
-    # K3 at N=1024 with planted outliers
-    n = 1024
-    X = np.stack([rng.uniform(-2, 2, n), rng.uniform(-2, 2, n),
-                  rng.uniform(4, 10, n)], 1).astype(np.float32)
-    w, t = np.array([0.03, -0.02, 0.05]), np.array([0.1, -0.05, 0.08])
-    th = np.linalg.norm(w)
-    K = np.array([[0, -w[2], w[1]], [w[2], 0, -w[0]], [-w[1], w[0], 0]]) / th
-    R = np.eye(3) + np.sin(th) * K + (1 - np.cos(th)) * K @ K
-    pc = X @ R.T + t
-    uv = np.stack([pc[:, 0] / pc[:, 2] * 400 + 320,
-                   pc[:, 1] / pc[:, 2] * 400 + 240], 1)
-    uv += rng.normal(0, 0.5, uv.shape)
-    out_idx = rng.choice(n, 120, replace=False)
-    uv[out_idx] += rng.uniform(20, 80, (120, 2))
-    isg = (1.0 / 1.2 ** (2 * rng.integers(0, 8, n))).astype(np.float32)
-    isg[rng.choice(n, 100, replace=False)] = 0.0
-    targs = [torch.eye(4, device=dev)] + [
-        torch.as_tensor(np.asarray(a, np.float32), device=dev)
-        for a in (X, uv, isg)]
-    kw = dict(fx=400.0, fy=400.0, cx=320.0, cy=240.0, rounds=4, iters=10,
-              chi2_th=5.991)
-    Tk, ik = ck.pose_opt_lm(*targs, **kw)
-    Tp, ip = ck.pose_opt_lm_plain(*targs, **kw)
-    e = float((Tk - Tp).abs().max())
-    n_diff = int((ik != ip).sum())
-    check(e <= 1e-3, f"K3: T differs by {e}")
-    check(n_diff <= 5, f"K3: inlier masks differ in {n_diff} of {n}")
-    Tgt = np.eye(4)
-    Tgt[:3, :3], Tgt[:3, 3] = R, t
-    check(float(np.abs(Tk.cpu().numpy() - Tgt).max()) < 5e-3,
-          "K3: pose not recovered")
-    ms = time_cuda(lambda: ck.pose_opt_lm(*targs, **kw), 50)
-    plain = time_cuda(lambda: ck.pose_opt_lm_plain(*targs, **kw), 3, 1)
-    print(f"[K3 pose_opt_lm] N={n}: T max err {e:g} (1e-3), inlier masks "
-          f"differ in {n_diff} (<= 5); {ms:.4f} ms kernel vs {plain:.4f} ms "
-          f"plain", flush=True)
-    rows.append(dict(name="pose_opt_lm", route="cuda",
-                     source="coslam_tpu_torch/csrc/pose_opt_lm.cu",
-                     replaces=f"{TPU_KERNELS}:464", shape="N=1024, 4x10 LM",
-                     max_abs_err=e, ms=ms, plain_ms=plain))
+                     "local-map search and whole-map fuse on a map-like "
+                     "table: " + " + ".join(kc.MATCH_MAPPING_PAIR),
+                     max_abs_err=0, ms=ms, plain_ms=plain, bound_ms=b_ms,
+                     bound_by=b_by, library_ms=None,
+                     dense=dict(shape=" + ".join(kc.MATCH_MAPPING_PAIR_DENSE)
+                                + ", 90% of either side valid", ms=d_ms,
+                                plain_ms=d_plain, bound_ms=d_b_ms,
+                                bound_by=d_b_by),
+                     ms_by_shape={k: v[0] for k, v in times.items()},
+                     bound_ms_by_shape={k: v[2] for k, v in times.items()}))
+    rows.append(k3_row)
+    # the designs these replaced were timed in turns with them by
+    # scripts/compare_torch_kernels.py --parent; this run has no such time
+    for r in rows:
+        r["prev_ms"] = None
     return rows
 
 
@@ -490,10 +621,16 @@ def main() -> int:
     map_launches, _fps = phase_mapping(mapping_seq,
                                        traj.poses_cw[:MAPPING_FRAMES])
     check("jax" not in sys.modules, "jax was imported")
+    n_loc = LOC_FRAMES[1] - LOC_FRAMES[0]
     for r in rows:
         r["launches"] = map_launches[r["name"]]
         r["launches_by_path"] = {"localization": loc_launches[r["name"]],
                                  "mapping": map_launches[r["name"]]}
+        # per tracked frame of the localization slice, per input frame of
+        # the mapping run (initialisation and backend inserts included)
+        r["launches_per_frame"] = {
+            "localization": loc_launches[r["name"]] / n_loc,
+            "mapping": map_launches[r["name"]] / MAPPING_FRAMES}
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -18,13 +18,14 @@ import torch
 
 from coslam_tpu_torch.config import SystemConfig
 from coslam_tpu_torch.ops import bow
+from coslam_tpu_torch.utils.device import DEFAULT_DEVICE, resolve_device
 
 
 class KeyFrameDatabase:
     def __init__(self, cfg: SystemConfig, vocab: Optional[np.ndarray] = None,
-                 device="cpu"):
+                 device=DEFAULT_DEVICE):
         self.cfg = cfg
-        self.device = torch.device(device)
+        self.device = resolve_device(device)
         if vocab is None and cfg.loop.vocab_pretrained:
             # reference System.cc:61-72: the vocabulary is a startup
             # artifact, not something trained inside the pipeline

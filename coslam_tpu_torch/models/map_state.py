@@ -13,6 +13,7 @@ from typing import NamedTuple
 import torch
 
 from coslam_tpu_torch.config import SystemConfig
+from coslam_tpu_torch.utils.device import DEFAULT_DEVICE, resolve_device
 
 
 class MapState(NamedTuple):
@@ -41,12 +42,12 @@ class MapState(NamedTuple):
     n_pt: torch.Tensor         # () i32 next free point slot
 
 
-def empty_map(cfg: SystemConfig, device="cpu") -> MapState:
+def empty_map(cfg: SystemConfig, device=DEFAULT_DEVICE) -> MapState:
     K = cfg.mapper.max_keyframes
     N = cfg.extractor.max_keypoints
     P = cfg.mapper.max_points
     f32, i32 = torch.float32, torch.int32
-    kw = dict(device=device)
+    kw = dict(device=resolve_device(device))
     return MapState(
         kf_pose=torch.eye(4, dtype=f32, **kw).repeat(K, 1, 1),
         kf_valid=torch.zeros(K, dtype=torch.bool, **kw),

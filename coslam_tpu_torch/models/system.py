@@ -39,6 +39,7 @@ from coslam_tpu_torch.models import tracking
 from coslam_tpu_torch.models.frame import Frame, build_frame
 from coslam_tpu_torch.ops import matching, twoview
 from coslam_tpu_torch.utils import geometry as geo
+from coslam_tpu_torch.utils.device import DEFAULT_DEVICE, resolve_device
 
 
 def _match_for_init(cfg: SystemConfig, f0: Frame, f1: Frame):
@@ -141,16 +142,17 @@ def _frame_at(frames: Frame, j: int) -> Frame:
 
 class System:
     """Monocular SLAM engine instance (reference System ctor System.cc:32 +
-    TrackMonocular :219) on `device`."""
+    TrackMonocular :219) on `device`: the GPU unless the caller passes
+    device="cpu"."""
 
-    def __init__(self, cfg: SystemConfig, device="cpu",
+    def __init__(self, cfg: SystemConfig, device=DEFAULT_DEVICE,
                  enable_loop_closing: bool = False):
         if enable_loop_closing:
             raise NotImplementedError(
                 "loop closing is not ported yet (ROADMAP Queue 1 item 13); "
                 "construct the System with enable_loop_closing=False")
         self.cfg = cfg
-        self.device = torch.device(device)
+        self.device = resolve_device(device)
         self.map = ms.empty_map(cfg, self.device)
         self.db = kdb.KeyFrameDatabase(cfg, device=self.device)
         self.n_loops_closed = 0

@@ -4,9 +4,10 @@ coslam_tpu/ops/pallas_kernels.py), with their plain PyTorch twins.
   * `fast_score_nms` (K1, csrc/fast_score_nms.cu) — FAST-9/16 score + 3x3
     NMS in one shared-memory pass per pyramid level.
   * `masked_match`   (K2, csrc/masked_match.cu) — gated Hamming matcher:
-    best / second-best distance and argmin per query, streaming targets.
+    best / second-best distance and argmin per query, streaming targets
+    as packed gate records and skipping whatever holds nothing.
   * `pose_opt_lm`    (K3, csrc/pose_opt_lm.cu) — the whole motion-only LM
-    in one thread block.
+    in one thread block, one pass per step over observations in registers.
 
 Each wrapper runs its `*_plain` twin for tensors on the CPU.  For CUDA
 tensors it launches the kernel or raises — there is no fallback.  Every
@@ -102,13 +103,17 @@ def _lib() -> ctypes.CDLL:
     lib = ctypes.CDLL(str(library_path()))
     lib.coslam_fast_score_nms.argtypes = [_P, _P, _I, _I, _P]
     lib.coslam_masked_match_segments.argtypes = [_I, _I]
+    lib.coslam_masked_match_query_block.argtypes = [_I]
     lib.coslam_masked_match.argtypes = [
         _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _F, _F,
-        _P, _P, _P, _P, _P]
+        _P, _P, _P, _P, _P, _P]
     lib.coslam_pose_opt_lm.argtypes = [
         _P, _P, _P, _P, _I, _F, _F, _F, _F, _I, _I, _F, _P, _P, _P]
+    lib.coslam_pose_opt_lm_register_limit.argtypes = []
     for fn in (lib.coslam_fast_score_nms, lib.coslam_masked_match_segments,
-               lib.coslam_masked_match, lib.coslam_pose_opt_lm):
+               lib.coslam_masked_match_query_block,
+               lib.coslam_masked_match, lib.coslam_pose_opt_lm,
+               lib.coslam_pose_opt_lm_register_limit):
         fn.restype = ctypes.c_int
     return lib
 
@@ -210,6 +215,31 @@ def masked_match_plain(desc_q, uv_q, r2_q, valid_q, level_q, desc_t, uv_t,
     return best, second, idx
 
 
+# Per (device, stream, n, m): the kernel's segment results and its ticket
+# counters (zero before the first launch, left zero by every launch), kept
+# so that a call allocates only its three outputs.
+_MATCH_SCRATCH: Dict[Tuple[int, int, int, int],
+                     Tuple[torch.Tensor, torch.Tensor]] = {}
+
+
+def _match_scratch(lib, dev: torch.device, stream: int, n: int, m: int):
+    key = (dev.index, stream, n, m)
+    hit = _MATCH_SCRATCH.get(key)
+    if hit is None:
+        n_seg = lib.coslam_masked_match_segments(n, m)
+        q_blocks = -(-n // lib.coslam_masked_match_query_block(n))
+        hit = (torch.empty(3 * n_seg * n if n_seg > 1 else 1,
+                           dtype=torch.int32, device=dev),
+               torch.zeros(max(q_blocks, 1), dtype=torch.int32, device=dev))
+        _MATCH_SCRATCH[key] = hit
+    return hit
+
+
+def _f32(t: Optional[torch.Tensor]) -> Optional[torch.Tensor]:
+    return t if t is None or t.dtype == torch.float32 \
+        else t.to(torch.float32)
+
+
 def masked_match(desc_q, uv_q, r2_q, valid_q, desc_t, uv_t, valid_t,
                  level_q=None, level_t=None,
                  level_lo: float = -1e9, level_hi: float = 1e9,
@@ -217,50 +247,63 @@ def masked_match(desc_q, uv_q, r2_q, valid_q, desc_t, uv_t, valid_t,
     """Fused windowed matcher (the reference's `pallas_kernels.masked_match`).
 
     desc_q: (N, 8) int32 (uint32 bits); uv_q: (N, 2) f32 predicted
-    locations; r2_q: (N,) squared window radii; valid_q: (N,) bool;
+    locations; r2_q: (N,) squared window radii, or None for no window on the
+    query side (the reference's radius of 1e18); valid_q: (N,) bool;
     desc_t (M, 8), uv_t (M, 2), valid_t (M,).  Optional per-target radii
     r2_t and octave gates level_t - level_q in [level_lo, level_hi] (applied
-    when either bound is within +-100).  Returns (best, second, idx), each
-    (N,) int32; best = second = 2^20 and idx = -1 where no target passes."""
+    when either bound is within +-100; an absent level counts as octave 0).
+    Returns (best, second, idx), each (N,) int32; best = second = 2^20 and
+    idx = -1 where no target passes."""
     n, m = desc_q.shape[0], desc_t.shape[0]
     dev = desc_q.device
-    level_q = (torch.zeros(n, dtype=torch.float32, device=dev)
-               if level_q is None else level_q.to(torch.float32))
-    level_t = (torch.zeros(m, dtype=torch.float32, device=dev)
-               if level_t is None else level_t.to(torch.float32))
-    r2_t = (torch.full((m,), 1e18, dtype=torch.float32, device=dev)
-            if r2_t is None else r2_t.to(torch.float32))
     use_level = level_lo > -100.0 or level_hi < 100.0
-    args = (desc_q, uv_q, r2_q, valid_q, level_q, desc_t, uv_t, valid_t,
-            r2_t, level_t)
-    if not _on_cuda("masked_match", *args):
-        return masked_match_plain(*args, use_level, float(level_lo),
-                                  float(level_hi))
-    args = tuple(a.contiguous() for a in args)
-    for name, t, dt, shape in zip(
-            ("desc_q", "uv_q", "r2_q", "valid_q", "level_q",
-             "desc_t", "uv_t", "valid_t", "r2_t", "level_t"), args,
-            (torch.int32, torch.float32, torch.float32, torch.bool,
-             torch.float32, torch.int32, torch.float32, torch.bool,
-             torch.float32, torch.float32),
-            ((n, 8), (n, 2), (n,), (n,), (n,), (m, 8), (m, 2), (m,), (m,),
-             (m,))):
+    r2_q, r2_t, level_q, level_t = (_f32(t) for t in
+                                    (r2_q, r2_t, level_q, level_t))
+    given = [t for t in (desc_q, uv_q, r2_q, valid_q, level_q, desc_t, uv_t,
+                         valid_t, r2_t, level_t) if t is not None]
+    if not _on_cuda("masked_match", *given):
+        def filled(t, size, value):
+            return t if t is not None else torch.full(
+                (size,), value, dtype=torch.float32, device=dev)
+        return masked_match_plain(
+            desc_q, uv_q, filled(r2_q, n, 1e18), valid_q,
+            filled(level_q, n, 0.0), desc_t, uv_t, valid_t,
+            filled(r2_t, m, 1e18), filled(level_t, m, 0.0), use_level,
+            float(level_lo), float(level_hi))
+    ptrs, keep = [], []
+    for name, t, dt, shape in (
+            ("desc_q", desc_q, torch.int32, (n, 8)),
+            ("uv_q", uv_q, torch.float32, (n, 2)),
+            ("r2_q", r2_q, torch.float32, (n,)),
+            ("valid_q", valid_q, torch.bool, (n,)),
+            ("level_q", level_q, torch.float32, (n,)),
+            ("desc_t", desc_t, torch.int32, (m, 8)),
+            ("uv_t", uv_t, torch.float32, (m, 2)),
+            ("valid_t", valid_t, torch.bool, (m,)),
+            ("r2_t", r2_t, torch.float32, (m,)),
+            ("level_t", level_t, torch.float32, (m,))):
+        if t is None:
+            if name not in ("r2_q", "r2_t", "level_q", "level_t"):
+                raise TypeError(f"masked_match {name}: missing")
+            ptrs.append(None)          # a null pointer: the kernel's default
+            continue
+        t = t.contiguous()
         _check(f"masked_match {name}", t, dt, shape)
+        if t.data_ptr() % 16:      # the kernel loads 16 bytes at a time
+            t = t.clone()
+        keep.append(t)             # a copy made here lives until the launch
+        ptrs.append(t.data_ptr())
     lib = _lib()
-    best = torch.empty(n, dtype=torch.int32, device=dev)
-    second = torch.empty_like(best)
-    idx = torch.empty_like(best)
-    n_seg = lib.coslam_masked_match_segments(n, m)
-    scratch = torch.empty(3 * n_seg * n if n_seg > 1 else 1,
-                          dtype=torch.int32, device=dev)
+    stream = _stream(desc_q)
+    out = torch.empty((3, n), dtype=torch.int32, device=dev)
+    o = out.data_ptr()
+    part, tickets = _match_scratch(lib, dev, stream, n, m)
     rc = lib.coslam_masked_match(
-        *[a.data_ptr() for a in args], n, m, int(use_level),
-        float(level_lo), float(level_hi), best.data_ptr(),
-        second.data_ptr(), idx.data_ptr(), scratch.data_ptr(),
-        _stream(desc_q))
+        *ptrs, n, m, int(use_level), float(level_lo), float(level_hi),
+        o, o + 4 * n, o + 8 * n, part.data_ptr(), tickets.data_ptr(), stream)
     _raise_on(rc, "masked_match")
     LAUNCHES["masked_match"] += 1
-    return best, second, idx
+    return out.unbind(0)
 
 
 # ---------------------------------------------------------------------------
@@ -320,11 +363,19 @@ def _exp_se3_twist(dx):
 
 
 def pose_opt_lm_plain(T_init, X, uv, isg, *, fx, fy, cx, cy, rounds, iters,
-                      chi2_th):
-    """The reference kernel's LM in tensor ops (host-driven iterations)."""
+                      chi2_th, trace: Optional[list] = None):
+    """The kernel's LM in tensor ops (host-driven iterations, no host sync).
+
+    Like the kernel it makes one pass per LM step: the pass at the trial
+    pose gives the normal equations and the cost together, an accepted step
+    carries them over as the next step's H, b and cost, and a rejected step
+    keeps the ones it had.  Only the start of a round linearises at the
+    current pose.  `trace`, if a list, receives (P, lam, improved) after
+    every step."""
     delta = float(np.sqrt(chi2_th))
     valid = isg > 0
     U, V = uv[:, 0], uv[:, 1]
+    diag = torch.arange(6, device=X.device)
 
     def resid(P):
         pc = X @ P[:, :3].T + P[:, 3]
@@ -335,48 +386,50 @@ def pose_opt_lm_plain(T_init, X, uv, isg, *, fx, fy, cx, cy, rounds, iters,
         rv = fy * pcy * iz + cy - V
         return pcx, pcy, iz, ru, rv, pcz <= 0.05, (ru * ru + rv * rv) * isg
 
-    def robust_per(chi2, robust):
-        if not robust:
-            return chi2
+    def linearise(P, active, robust):
+        """(H (6, 6), b (6,), cost ()) at pose P over the active points."""
+        pcx, pcy, iz, ru, rv, behind, chi2 = resid(P)
+        ok = active & ~behind
         e = torch.sqrt(torch.clamp(chi2, min=1e-12))
-        return torch.where(e > delta, delta * (2.0 * e - delta), chi2)
+        over = (e > delta) if robust else torch.zeros_like(ok)
+        w = torch.where(ok, isg * torch.where(over, delta / e, 1.0), 0.0)
+        per = torch.where(over, delta * (2.0 * e - delta), chi2)
+        cost = torch.where(ok, per, 0.0).sum()
+        iz2 = iz * iz
+        zero = torch.zeros_like(iz)
+        Ju = torch.stack([fx * iz, zero, -fx * pcx * iz2,
+                          -fx * pcx * pcy * iz2,
+                          fx * (1.0 + pcx * pcx * iz2), -fx * pcy * iz], 1)
+        Jv = torch.stack([zero, fy * iz, -fy * pcy * iz2,
+                          -fy * (1.0 + pcy * pcy * iz2),
+                          fy * pcx * pcy * iz2, fy * pcx * iz], 1)
+        H = (Ju * w[:, None]).T @ Ju + (Jv * w[:, None]).T @ Jv
+        b = (Ju * (w * ru)[:, None]).sum(0) + (Jv * (w * rv)[:, None]).sum(0)
+        return H, b, cost
 
     P = T_init[:3, :4].to(torch.float32)
     active = valid
     for rnd in range(rounds):
         robust = rnd < 2
         lam = torch.tensor(1e-3, dtype=torch.float32, device=X.device)
+        H, b, cost = linearise(P, active, robust)
         for _ in range(iters):
-            pcx, pcy, iz, ru, rv, behind, chi2 = resid(P)
-            ok = active & ~behind
-            e = torch.sqrt(torch.clamp(chi2, min=1e-12))
-            w_rob = torch.where(e > delta, delta / e, 1.0) if robust \
-                else torch.ones_like(e)
-            w = torch.where(ok, isg * w_rob, 0.0)
-            cost = torch.where(ok, robust_per(chi2, robust), 0.0).sum()
-            iz2 = iz * iz
-            zero = torch.zeros_like(iz)
-            Ju = torch.stack([fx * iz, zero, -fx * pcx * iz2,
-                              -fx * pcx * pcy * iz2,
-                              fx * (1.0 + pcx * pcx * iz2), -fx * pcy * iz], 1)
-            Jv = torch.stack([zero, fy * iz, -fy * pcy * iz2,
-                              -fy * (1.0 + pcy * pcy * iz2),
-                              fy * pcx * pcy * iz2, fy * pcx * iz], 1)
-            H = (Ju * w[:, None]).T @ Ju + (Jv * w[:, None]).T @ Jv
-            b = (Ju * (w * ru)[:, None]).sum(0) + (Jv * (w * rv)[:, None]).sum(0)
-            diag = torch.arange(6, device=X.device)
-            H[diag, diag] = torch.diagonal(H) * (1.0 + lam) + 1e-9
-            dx = -chol_solve6(H, b)
+            Hd = H.clone()
+            Hd[diag, diag] = torch.diagonal(H) * (1.0 + lam) + 1e-9
+            dx = -chol_solve6(Hd, b)
             Rd, td = _exp_se3_twist(dx)
             Pn = Rd @ P
             Pn = torch.cat([Pn[:, :3], (Pn[:, 3] + td)[:, None]], 1)
-            _, _, _, _, _, behind_n, chi2_n = resid(Pn)
-            cost_n = torch.where(active & ~behind_n,
-                                 robust_per(chi2_n, robust), 0.0).sum()
+            Hn, bn, cost_n = linearise(Pn, active, robust)
             improved = cost_n < cost
             P = torch.where(improved, Pn, P)
+            H = torch.where(improved, Hn, H)
+            b = torch.where(improved, bn, b)
+            cost = torch.where(improved, cost_n, cost)
             lam = torch.clamp(torch.where(improved, lam * 0.5, lam * 4.0),
                               1e-6, 1e3)
+            if trace is not None:
+                trace.append((P, lam, improved))
         _, _, _, _, _, behind, chi2 = resid(P)
         active = valid & ~behind & (chi2 < chi2_th)
     bottom = torch.tensor([[0.0, 0.0, 0.0, 1.0]], dtype=torch.float32,

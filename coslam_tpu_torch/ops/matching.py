@@ -119,14 +119,13 @@ def match_windowed(desc_q, uv_pred, radius, valid_q, desc_t, uv_t, valid_t,
     """Windowed projection search (the SearchByProjection family): `match`
     with window_mask(uv_pred, uv_t, radius) [+ level gate], computed by the
     streaming matcher without building the (N, M) matrices."""
-    N, M = desc_q.shape[0], desc_t.shape[0]
+    N = desc_q.shape[0]
     dev = desc_q.device
     r = torch.as_tensor(radius, dtype=torch.float32, device=dev) \
         .broadcast_to((N,))
-    lq = (level_q.to(torch.float32) if level_q is not None
-          else torch.zeros(N, dtype=torch.float32, device=dev))
-    lt = (level_t.to(torch.float32) if level_t is not None
-          else torch.zeros(M, dtype=torch.float32, device=dev))
+    # an absent octave is a null pointer to the kernel, not a tensor of zeros
+    lq = level_q.to(torch.float32) if level_q is not None else None
+    lt = level_t.to(torch.float32) if level_t is not None else None
     r2 = r * r
     uv_q = uv_pred.to(torch.float32)
     uv_tt = uv_t.to(torch.float32)
@@ -140,11 +139,11 @@ def match_windowed(desc_q, uv_pred, radius, valid_q, desc_t, uv_t, valid_t,
     if mutual:
         # reverse pass: the window/level gates belong to the original query
         # side, so they ride the target-side inputs here
+        # (r2_q=None: no window of the reversed queries' own)
         _, _, ridx = ck.masked_match(
-            desc_t, uv_tt, torch.full((M,), 1e18, dtype=torch.float32,
-                                      device=dev),
-            valid_t, desc_q, uv_q, valid_q, level_q=lt, level_t=lq,
-            level_lo=-level_hi, level_hi=-level_lo, r2_t=r2)
+            desc_t, uv_tt, None, valid_t, desc_q, uv_q, valid_q,
+            level_q=lt, level_t=lq, level_lo=-level_hi, level_hi=-level_lo,
+            r2_t=r2)
         safe = torch.clamp(idx, min=0).long()
         ok = ok & (ridx[safe] == torch.arange(N, dtype=torch.int32,
                                               device=dev))

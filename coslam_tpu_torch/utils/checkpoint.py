@@ -19,6 +19,7 @@ import numpy as np
 import torch
 
 from coslam_tpu_torch.models import map_state as ms
+from coslam_tpu_torch.utils.device import DEFAULT_DEVICE, resolve_device
 
 
 def _to_tensor(a: np.ndarray, device) -> torch.Tensor:
@@ -41,8 +42,9 @@ def save_map(path: str, m: ms.MapState, extra: Optional[dict] = None) -> None:
     np.savez_compressed(path, **arrays)
 
 
-def load_map(path: str, device="cpu"):
+def load_map(path: str, device=DEFAULT_DEVICE):
     """Returns (MapState on `device`, extra dict of numpy arrays)."""
+    device = resolve_device(device)
     fields, extra = {}, {}
     with np.load(path, allow_pickle=False) as z:
         for k in z.files:

@@ -14,7 +14,8 @@ torch.profiler, and the script prints:
   * wall time and frames/s of the profiled run (host clock, synchronised);
   * device busy time (sum of kernel times; one stream, so no overlap) and
     the device idle share of the wall time;
-  * the top kernels and operators by device time;
+  * the port's three kernels' device time, launches and launches per frame,
+    and the top kernels and operators by device time;
   * the count of host-side sync points the profiler saw (stream
     synchronizations, memcpys, .item() calls).
 
@@ -158,6 +159,13 @@ def main() -> int:
                           "cudaDeviceSynchronize", "aten::item",
                           "aten::_local_scalar_dense")}
     print(f"host-side sync points over {n} frames: {syncs}")
+    for tag in ("fast_score_nms", "masked_match", "pose_opt_lm"):
+        mine = [e for e in events if tag in e.key
+                and e.device_type == torch.autograd.DeviceType.CUDA]
+        us, count = (sum(e.self_device_time_total for e in mine),
+                     sum(e.count for e in mine))
+        print(f"kernel {tag}: {us / 1e3:.3f} ms in {count} launches "
+              f"({us / max(count, 1):.2f} us each, {count / n:.2f} per frame)")
     print(events.table(sort_by="self_cuda_time_total", row_limit=25,
                        max_name_column_width=60))
     return 0

@@ -65,7 +65,8 @@ def _cfgs(K=8):
 
 def test_database_add_remap_grow_and_scores(rng):
     jc, tc = _cfgs()
-    jdb, tdb = jkdb.KeyFrameDatabase(jc), tkdb.KeyFrameDatabase(tc)
+    jdb = jkdb.KeyFrameDatabase(jc)
+    tdb = tkdb.KeyFrameDatabase(tc, device="cpu")
     assert jdb.n_words == tdb.n_words == 8192
     assert tdb._external_vocab and jdb._external_vocab
     for k in range(6):
@@ -108,9 +109,9 @@ def test_retraining_raises_only_where_the_reference_retrains(rng):
     cfg = tcfg.SystemConfig(
         extractor=tcfg.ExtractorConfig(max_keypoints=512),
         mapper=tcfg.MapperConfig(max_keyframes=8, max_points=64), loop=loop)
-    db = tkdb.KeyFrameDatabase(cfg)
+    db = tkdb.KeyFrameDatabase(cfg, device="cpu")
     assert not db._external_vocab and db.n_words == 64
-    m = tms.empty_map(cfg)
+    m = tms.empty_map(cfg, device="cpu")
     m = m._replace(kf_valid=torch.ones(8, dtype=torch.bool),
                    kf_kp_valid=torch.ones((8, 512), dtype=torch.bool))
     for k in range(3):
@@ -120,7 +121,7 @@ def test_retraining_raises_only_where_the_reference_retrains(rng):
     with pytest.raises(NotImplementedError, match="item 11"):
         db.maybe_retrain(m)            # 4 added: the reference retrains
     pre = tkdb.KeyFrameDatabase(tcfg.SystemConfig(
-        mapper=tcfg.MapperConfig(max_keyframes=8)))
+        mapper=tcfg.MapperConfig(max_keyframes=8)), device="cpu")
     for k in range(4):
         pre.add_row(k, np.zeros(pre.n_words, np.float32))
     pre.maybe_retrain(m)               # pretrained: never retrains

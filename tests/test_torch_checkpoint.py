@@ -67,7 +67,7 @@ def test_load_system_from_reference_checkpoint(rng, tmp_path):
     path = str(tmp_path / "map.npz")
     jck.save_system(path, js)
 
-    ts = TSystem(_cfg(tcfg))
+    ts = TSystem(_cfg(tcfg), device="cpu")
     tck.load_system(path, ts)
     _assert_maps_equal(ts.map, js.map)
     assert ts.state == "OK"
@@ -92,7 +92,7 @@ def test_port_map_loads_back_into_reference(rng, tmp_path):
     jmap = _random_map(rng, _cfg(jcfg))
     path = str(tmp_path / "m.npz")
     jck.save_map(path, jmap, {"note": np.arange(3)})
-    tmap, extra = tck.load_map(path)
+    tmap, extra = tck.load_map(path, device="cpu")
     np.testing.assert_array_equal(extra["note"], np.arange(3))
     path2 = str(tmp_path / "m2.npz")
     tck.save_map(path2, tmap)
@@ -106,7 +106,7 @@ def test_port_map_loads_back_into_reference(rng, tmp_path):
 def test_map_state_functions(rng, name):
     jc, tc = _cfg(jcfg), _cfg(tcfg)
     if name == "empty_map":
-        _assert_maps_equal(tms.empty_map(tc), jms.empty_map(jc))
+        _assert_maps_equal(tms.empty_map(tc, device="cpu"), jms.empty_map(jc))
         return
     jmap = _random_map(rng, jc)
     jmap = jmap._replace(kf_obs_pt=jnp.asarray(
@@ -130,7 +130,7 @@ def test_load_system_widens_capacities_and_db(rng, tmp_path):
     small = tcfg.SystemConfig(
         extractor=tcfg.ExtractorConfig(**SMALL["extractor"]),
         mapper=tcfg.MapperConfig(max_keyframes=4, max_points=256))
-    ts = TSystem(small)
+    ts = TSystem(small, device="cpu")
     assert ts.db.bows.shape[0] == 4
     tck.load_system(path, ts)
     assert ts.cfg.mapper.max_keyframes == 8
@@ -152,7 +152,7 @@ def test_save_system_loads_into_reference(rng, tmp_path):
     js.db.has[:] = True
     path = str(tmp_path / "j.npz")
     jck.save_system(path, js)
-    ts = TSystem(_cfg(tcfg))
+    ts = TSystem(_cfg(tcfg), device="cpu")
     tck.load_system(path, ts)
     path2 = str(tmp_path / "t.npz")
     tck.save_system(path2, ts)

@@ -99,7 +99,7 @@ def test_remap_after_compact_matches_reference(rng):
     jmap = _random_map(rng, _small(jcfg))
     tmap = jms.MapState(**{k: _t(v) for k, v in jmap._asdict().items()})
     js = JSystem(_small(jcfg), enable_loop_closing=False)
-    ts = TSystem(_small(tcfg))
+    ts = TSystem(_small(tcfg), device="cpu")
     traj = [(3 * i, i % 6, np.eye(4, dtype=np.float32) * (1 + 0.1 * i))
             for i in range(6)]
     kp = rng.integers(-1, 59, 32).astype(np.int32)

@@ -49,11 +49,32 @@ def _t(a):
     return torch.from_numpy(a.view(np.int32) if a.dtype == np.uint32 else a)
 
 
-@pytest.mark.parametrize("gates", ["window", "levels_r2t"])
+def _sparse(p, case):
+    """Validity of a map table: only the head of one side holds anything."""
+    n, m = len(p["vq"]), len(p["vt"])
+    if case == "map_like_targets":
+        p["vt"] = np.arange(m) < 40
+    elif case == "map_like_queries":
+        p["vq"] = np.arange(n) < 40
+    elif case == "all_targets_invalid":
+        p["vt"] = np.zeros(m, bool)
+    elif case == "all_queries_invalid":
+        p["vq"] = np.zeros(n, bool)
+    return p
+
+
+@pytest.mark.parametrize("gates", ["window", "levels_r2t", "map_like_targets",
+                                   "map_like_queries", "all_targets_invalid",
+                                   "all_queries_invalid"])
 def test_twin_against_pallas_kernel(rng, gates):
-    p = _problem(rng, 256, 512)
+    if gates == "map_like_targets":      # first 40 of 4096 target slots valid
+        p = _sparse(_problem(rng, 256, 4096, n_true=40), gates)
+    elif gates == "map_like_queries":    # ... and the reverse direction
+        p = _sparse(_problem(rng, 4096, 256, n_true=40), gates)
+    else:
+        p = _sparse(_problem(rng, 256, 512), gates)
     kw_j, kw_t = {}, {}
-    if gates == "levels_r2t":
+    if gates != "window":
         kw_j = dict(level_q=jnp.asarray(p["lq"]), level_t=jnp.asarray(p["lt"]),
                     level_lo=-1, level_hi=1, r2_t=jnp.asarray(p["r2t"]))
         kw_t = dict(level_q=_t(p["lq"]), level_t=_t(p["lt"]), level_lo=-1,
@@ -68,9 +89,65 @@ def test_twin_against_pallas_kernel(rng, gates):
     np.testing.assert_array_equal(tb, jb)
     np.testing.assert_array_equal(ts, js)
     has = jb < int(pk.INF_I32)
-    assert has.sum() > 50
+    if gates.startswith("all_"):
+        assert not has.any()
+    elif gates.startswith("map_like"):
+        assert 5 < has.sum() <= 40 * (1 if gates == "map_like_queries" else 256)
+    else:
+        assert has.sum() > 50
     np.testing.assert_array_equal(ti[has], ji[has])
     assert (ti[~has] == -1).all()
+
+
+@pytest.mark.parametrize("sparse", [False, True])
+def test_validity_folded_into_negative_radius(rng, sparse):
+    """The CUDA kernel stores an invalid target's squared radius as -1 and
+    drops the validity test: no squared distance passes a negative radius,
+    so the twin's outputs do not change."""
+    p = _problem(rng, 300, 700)
+    if sparse:
+        p["vt"] = np.arange(700) < 40
+    args = [_t(p[k]) for k in ("dq", "uvq", "r2q", "vq", "lq", "dt", "uvt",
+                               "vt", "r2t", "lt")]
+    ref = ck.masked_match_plain(*args, True, -1.0, 1.0)
+    folded = list(args)
+    folded[7] = torch.ones(700, dtype=torch.bool)
+    folded[8] = torch.where(args[7], args[8], -1.0)
+    got = ck.masked_match_plain(*folded, True, -1.0, 1.0)
+    for g, r in zip(got, ref):
+        np.testing.assert_array_equal(g.numpy(), r.numpy())
+    assert int((ref[0] < ck.INF_I32).sum()) > 5
+
+
+def test_absent_optional_inputs_equal_the_reference_defaults(rng):
+    """r2_q=None (the reverse pass of the mutual check), r2_t=None and absent
+    octaves mean the reference's 1e18 radii and octave 0."""
+    p = _problem(rng, 200, 300)
+    n, m = 200, 300
+    base = (_t(p["dq"]), _t(p["uvq"]), None, _t(p["vq"]), _t(p["dt"]),
+            _t(p["uvt"]), _t(p["vt"]))
+    got = ck.masked_match(*base, level_t=_t(p["lt"]), level_lo=0, level_hi=2,
+                          r2_t=_t(p["r2t"]))
+    ref = ck.masked_match(base[0], base[1], torch.full((n,), 1e18), *base[3:],
+                          level_q=torch.zeros(n), level_t=_t(p["lt"]),
+                          level_lo=0, level_hi=2, r2_t=_t(p["r2t"]))
+    for g, r in zip(got, ref):
+        np.testing.assert_array_equal(g.numpy(), r.numpy())
+    jb, js, ji = (np.asarray(a) for a in pk.masked_match(
+        jnp.asarray(p["dq"][:128]), jnp.asarray(p["uvq"][:128]),
+        jnp.full(128, 1e18, jnp.float32), jnp.asarray(p["vq"][:128]),
+        jnp.asarray(p["dt"][:256]), jnp.asarray(p["uvt"][:256]),
+        jnp.asarray(p["vt"][:256]), r2_t=jnp.asarray(p["r2t"][:256]),
+        block_n=128, block_m=256))
+    tb, ts, ti = (a.numpy() for a in ck.masked_match(
+        _t(p["dq"][:128]), _t(p["uvq"][:128]), None, _t(p["vq"][:128]),
+        _t(p["dt"][:256]), _t(p["uvt"][:256]), _t(p["vt"][:256]),
+        r2_t=_t(p["r2t"][:256])))
+    np.testing.assert_array_equal(tb, jb)
+    np.testing.assert_array_equal(ts, js)
+    has = jb < int(pk.INF_I32)
+    assert has.sum() > 20
+    np.testing.assert_array_equal(ti[has], ji[has])
 
 
 def test_twin_on_empty_target_set(rng):

@@ -130,8 +130,8 @@ def test_unported_paths_raise():
     """What is still unported raises, naming its ROADMAP item: loop closing
     (13), relocalization (12) and stereo / RGB-D (14)."""
     with pytest.raises(NotImplementedError, match="item 13"):
-        TSystem(_cfg(tcfg), enable_loop_closing=True)
-    ts = TSystem(_cfg(tcfg))
+        TSystem(_cfg(tcfg), device="cpu", enable_loop_closing=True)
+    ts = TSystem(_cfg(tcfg), device="cpu")
     img = np.zeros((480, 640), np.uint8)
     ts.state = "OK"
     ts.last_kp_pt = torch.full((512,), -1, dtype=torch.int32)
