@@ -8,7 +8,9 @@ lines):
   1. card: name and power limit (nvidia-smi), CUDA kernel build time;
   2. kernels: each hand-written CUDA kernel against its plain PyTorch twin on
      the card, at the shapes the tracking and mapping paths give it (the
-     inputs of coslam_tpu_torch/utils/kernel_cases.py: K2 at both map
+     inputs of coslam_tpu_torch/utils/kernel_cases.py: K1 on the 8 pyramid
+     levels of a rendered frame, one by one and as the one launch with the
+     extractor's border that the paths make; K2 at both map
      capacities, 32768 and 16384 point slots, on dense inputs and on
      map-like ones whose table is mostly empty, then on the edges of its
      code paths; K3 below its block size, at 1024 with most and with 215
@@ -38,8 +40,19 @@ lines):
      backend insert; prints frames/s, backend-insert ms per keyframe and
      host syncs per keyframe.
 
+  5. kidnap and recover: phase 4's System, still in mapping mode, is fed
+     grey frames until it is LOST and then frames of the same sequence from
+     a viewpoint mapped earlier (`track_mono`), the frames of the JAX run in
+     coslam_tpu_torch/assets/smoke_reloc_expected.npz.  Checks that LOST is
+     entered on the grey frames and not before, that a relocalization
+     (place recognition -> EPnP RANSAC -> pose optimization -> recovery
+     rounds) brings it back within 4 returned frames, that the recovered
+     frames' camera centres, aligned as in phase 4, agree with the JAX
+     run's, and that K2 and K3 ran inside the attempts; prints ms per
+     attempt (CUDA events) beside the JAX run's outcome.
+
 The second-to-last line is a JSON object with each kernel's launches (in
-the mapping run; `launches_by_path` and `launches_per_frame` have both
+the mapping run; `launches_by_path` and `launches_per_frame` have all three
 runs), error, times and bound.  K2's and K3's headline numbers are those of
 the inputs most like the paths' own (the mapping path's pair of launches on
 a map-like table; 215 of 1024 observations with information); the other
@@ -177,11 +190,10 @@ def phase_card():
     return card
 
 
-def phase_kernels(frame_img: np.ndarray, cfg):
+def phase_kernels(cfg):
     """Each kernel against its plain twin at the main paths' shapes, with
     its device time beside the card's bound for the same work."""
     from coslam_tpu_torch.ops import cuda_kernels as ck
-    from coslam_tpu_torch.ops import pyramid
     from coslam_tpu_torch.utils import kernel_cases as kc
 
     dev = torch.device("cuda")
@@ -194,9 +206,13 @@ def phase_kernels(frame_img: np.ndarray, cfg):
               f"{bound_ms * 1e3:.3f} us by {bound_by}: bound / time = "
               f"{bound_ms / ms:.4f}", flush=True)
 
-    # K1 on all 8 levels of a rendered 640x480 frame
-    levels = [l.contiguous() for l in pyramid.build_pyramid(
-        torch.as_tensor(frame_img, device=dev), cfg.extractor)]
+    # K1 on the 8 pyramid levels of a rendered 640x480 frame: level by level
+    # through the one-level entry (no border mask; the twin wraps at the
+    # image border where the kernel clamps, so away from it), then as the
+    # path calls it, one launch with the extractor's border inside
+    levels = kc.fast_inputs(dev)
+    margin = cfg.extractor.edge_threshold
+    check(margin == kc.FAST_MARGIN, f"edge_threshold {margin}")
     err = 0.0
     for lvl, img in enumerate(levels):
         got = ck.fast_score_nms(img)
@@ -204,21 +220,45 @@ def phase_kernels(frame_img: np.ndarray, cfg):
         e = float((got - ref)[8:-8, 8:-8].abs().max())
         check(e <= 1e-5, f"K1 level {lvl} {tuple(img.shape)}: max err {e}")
         err = max(err, e)
-    ms = kernel_ms(lambda: [ck.fast_score_nms(l) for l in levels],
+    before = ck.LAUNCHES["fast_score_nms"]
+    got = ck.fast_score_nms_pyramid(levels, margin)
+    check(ck.LAUNCHES["fast_score_nms"] == before + 1,
+          "K1: the pyramid took more than one launch")
+    ref = ck.fast_score_nms_pyramid_plain(levels, margin)
+    for lvl, (g, r) in enumerate(zip(got, ref)):
+        e = float((g - r).abs().max())
+        check(e <= 1e-5, f"K1 pyramid level {lvl}: max err {e}")
+        check(float(g[:margin].abs().max()) == 0.0
+              and float(g[:, -margin:].abs().max()) == 0.0,
+              f"K1 pyramid level {lvl}: the border is not zero")
+        err = max(err, e)
+    ms = kernel_ms(lambda: ck.fast_score_nms_pyramid(levels, margin),
                    "fast_score_nms")
-    plain = time_cuda(lambda: [ck.fast_score_nms_plain(l) for l in levels], 20)
-    # per pixel: 16 ring reads, 32 threshold tests, the 16 arcs of 9 with
-    # their min / max for the score, the 3x3 maximum: ~300 operations;
-    # one f32 read and one written
+    plain = time_cuda(
+        lambda: ck.fast_score_nms_pyramid_plain(levels, margin), 20)
+    # What the function needs, counted in two-input operations of its
+    # cheapest exact form known: on every pixel of the kept region and its
+    # 1-px ring the arcs' minima and maxima of the ring pixels from suffix
+    # and prefix extrema of the circle's two halves (2 x 42; the kernel's
+    # three-input instructions do two of these each), the best arc of 16
+    # (2 x 15), two differences and a maximum; the 3x3 maximum as 3 + 3
+    # shared row maxima (8 a pixel with the ring's) and the comparison and
+    # selection: 127 operations.  Every pixel read once and written once.
     px = sum(l.numel() for l in levels)
-    b_ms, b_by = bound(300.0 * px, 8.0 * px)
+    scored = sum((l.shape[0] - 2 * margin + 2) * (l.shape[1] - 2 * margin + 2)
+                 for l in levels)
+    b_ms, b_by = bound(127.0 * scored, 8.0 * px)
     print(f"[K1 fast_score_nms] 8 levels {tuple(levels[0].shape)}.."
-          f"{tuple(levels[-1].shape)}: interior max err {err:g} (atol 1e-5)")
-    report("K1 fast_score_nms, one frame", ms, plain, b_ms, b_by)
+          f"{tuple(levels[-1].shape)}, one by one and as one launch with a "
+          f"{margin}-px border: max err {err:g} (atol 1e-5; exactly 0: "
+          f"{err == 0.0})")
+    report("K1 fast_score_nms, one frame's pyramid in one launch", ms, plain,
+           b_ms, b_by)
     rows.append(dict(name="fast_score_nms", route="cuda",
                      source="coslam_tpu_torch/csrc/fast_score_nms.cu",
                      replaces=f"{TPU_KERNELS}:97", shape="8-level pyramid of "
-                     "480x640", max_abs_err=err, ms=ms, plain_ms=plain,
+                     f"480x640 in one launch, {margin}-px border inside",
+                     max_abs_err=err, ms=ms, plain_ms=plain,
                      bound_ms=b_ms, bound_by=b_by, library_ms=None))
 
     # K2 with the octave gate and per-target radii on, at the inputs of
@@ -426,8 +466,9 @@ def phase_slice(seq: np.ndarray, cfg):
     check(new_kf == 0 and int(slam.map.kf_valid.sum()) == n_kf0,
           "a keyframe was inserted in localization mode")
     check(all(v > 0 for v in launches.values()), f"launches {launches}")
-    check(launches["fast_score_nms"] >= 8 * n,
-          f"K1 launched {launches['fast_score_nms']} times for {n} frames")
+    check(launches["fast_score_nms"] == n,
+          f"K1 launched {launches['fast_score_nms']} times for {n} frames: "
+          "not one launch a frame")
     check(bool(np.isfinite(T).all()) and T.shape == (n, 4, 4), "bad poses")
 
     c_err = np.linalg.norm(evaluation.trajectory_xyz(T)
@@ -594,7 +635,120 @@ def phase_mapping(seq: np.ndarray, gt_poses: np.ndarray):
           f"{syncs_total / max(probe_inserted, 1):.1f} per keyframe, "
           f"{sum(probe.syncs) / max(probe_inserted, 1):.1f} per keyframe inside "
           f"the backend inserts", flush=True)
-    return launches, fps
+    return launches, fps, slam, (sc, R, t)
+
+
+def phase_reloc(slam, align, seq: np.ndarray):
+    """Kidnap phase 4's System and let it find its way back."""
+    from coslam_tpu_torch.ops import cuda_kernels as ck
+    from coslam_tpu_torch.utils import evaluation
+
+    exp = np.load(os.path.join(ASSETS, "smoke_reloc_expected.npz"))
+    blank = np.full_like(seq[0], 96)
+    frames = [(int(f), blank if src < 0 else seq[src], int(src))
+              for f, src in zip(exp["frame_ids"], exp["source"])]
+    n_blank = sum(1 for f in frames if f[2] < 0)
+    check(slam.state == "OK" and slam.n_relocalizations == 0,
+          f"before the kidnap: state {slam.state}")
+
+    attempts = []            # (events, launches inside, candidates, accepted)
+    inner_attempt = slam._attempt_relocalization
+    inner_detect = slam.db.detect_reloc_candidates
+    seen = []
+
+    def detect(*a, **kw):
+        seen.append(inner_detect(*a, **kw))
+        return seen[-1]
+
+    def attempt(frame):
+        before = dict(ck.LAUNCHES)
+        start = torch.cuda.Event(enable_timing=True)
+        stop = torch.cuda.Event(enable_timing=True)
+        start.record()
+        best = inner_attempt(frame)
+        stop.record()
+        attempts.append(((start, stop),
+                         {k: ck.LAUNCHES[k] - v for k, v in before.items()},
+                         seen[-1], -1 if best is None else int(best.ref_kf),
+                         0 if best is None else int(best.n_inliers)))
+        return best
+
+    slam._attempt_relocalization = attempt
+    slam.db.detect_reloc_candidates = detect
+    torch.cuda.synchronize()
+    ck.reset_launch_counts()
+    t0 = time.perf_counter()
+    rows = []
+    try:
+        for fid, img, _src in frames:
+            T = slam.track_mono(img, fid)
+            rows.append((slam.state, bool(slam.stats[-1]["lost"]),
+                         slam.stats[-1]["inliers"], np.asarray(T)))
+    finally:
+        slam._attempt_relocalization = inner_attempt
+        slam.db.detect_reloc_candidates = inner_detect
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    launches = dict(ck.LAUNCHES)
+
+    states = [r[0] for r in rows]
+    check(all(st == "LOST" and r[1] for st, r in
+              zip(states[:n_blank], rows[:n_blank])),
+          f"not LOST on the grey frames: {states[:n_blank]}")
+    back = [i for i, st in enumerate(states[n_blank:]) if st == "OK"]
+    check(bool(back) and back[0] < 4 and states[-1] == "OK",
+          f"no relocalization within 4 returned frames: {states}")
+    check(slam.n_relocalizations >= 1
+          and slam.shutdown()["relocalizations"] == slam.n_relocalizations,
+          f"{slam.n_relocalizations} relocalizations")
+    check(all(np.isfinite(r[3]).all() for r in rows), "non-finite poses")
+    check(all(v > 0 for v in launches.values()), f"launches {launches}")
+    # inside every attempt with candidates: per candidate the seed match is
+    # dense (no K2), the two recovery rounds are 2 x 2 K2 launches, and
+    # there are 3 pose optimizations
+    for _ev, inside, cands, _acc, _n in attempts:
+        check(inside["masked_match"] == 4 * len(cands)
+              and inside["pose_opt_lm"] == 3 * len(cands),
+              f"launches inside an attempt over {len(cands)} candidates: "
+              f"{inside}")
+    hit = [a for a in attempts if a[3] >= 0]
+    check(len(hit) == slam.n_relocalizations and len(hit[0][2]) > 0,
+          "the accepted attempt had no candidate")
+    # recovered frames against the JAX run's, in the JAX map's frame
+    sc, R, t = align
+    both = [i for i in range(n_blank, len(rows))
+            if states[i] == "OK" and exp["ok"][i]]
+    check(bool(both), "no recovered frame in common with the JAX run")
+    mine = evaluation.trajectory_xyz(np.stack([rows[i][3] for i in both]))
+    ref = evaluation.trajectory_xyz(exp["T"][both])
+    c_err = np.linalg.norm((sc * (R @ mine.T)).T + t - ref, axis=1)
+    check(float(c_err.max()) <= MAPPING_CENTRE_BAR,
+          f"recovered camera centre off by {c_err.max()}")
+    ms = [a[0][0].elapsed_time(a[0][1]) for a in attempts]
+    print(f"[reloc] {n_blank} grey frames then frames "
+          f"{[f[2] for f in frames[n_blank:]]}: states {states}, inliers "
+          f"{[r[2] for r in rows]}; recovered on returned frame "
+          f"{back[0] + 1} against keyframe {hit[0][3]} with {hit[0][4]} "
+          f"inliers after the recovery rounds; {slam.n_relocalizations} "
+          f"relocalizations; aligned centre err vs the JAX run max "
+          f"{c_err.max():.2e} (bar {MAPPING_CENTRE_BAR}, {len(both)} "
+          f"frames); launches {launches} ({dt:.3f} s)", flush=True)
+    print(f"[reloc] JAX run: states "
+          f"{['OK' if o else 'LOST' for o in exp['ok']]}, inliers "
+          f"{exp['n_inliers'].tolist()}; recovered on frame id "
+          f"{int(exp['recovered_frame'])} against keyframe "
+          f"{[int(a) for a in exp['attempt_accepted'] if a >= 0][:1]} with "
+          f"{[int(n) for n in exp['attempt_inliers'] if n > 0][:1]} "
+          f"inliers; candidates per attempt "
+          f"{[[int(c) for c in cs if c >= 0] for cs in exp['attempt_candidates']]}; "
+          f"{int(exp['n_relocalizations'])} relocalizations", flush=True)
+    print(f"[reloc] {len(attempts)} attempts: "
+          f"{', '.join(f'{m:.2f}' for m in ms)} ms each (CUDA events), mean "
+          f"{np.mean(ms):.2f} ms; candidates tried "
+          f"{[len(a[2]) for a in attempts]}; K2 / K3 launches per attempt "
+          f"{[(a[1]['masked_match'], a[1]['pose_opt_lm']) for a in attempts]}",
+          flush=True)
+    return launches, len(frames)
 
 
 def main() -> int:
@@ -613,24 +767,28 @@ def main() -> int:
     seq = synthetic.render_sequence(
         cfg.camera, synthetic.Trajectory(traj.poses_cw[lo:hi]), scene)
 
-    rows = phase_kernels(seq[0], cfg)
+    rows = phase_kernels(cfg)
     loc_launches, _fps = phase_slice(seq, cfg)
     mapping_seq = synthetic.render_sequence(
         cfg.camera, synthetic.Trajectory(traj.poses_cw[:MAPPING_FRAMES]),
         scene)
-    map_launches, _fps = phase_mapping(mapping_seq,
-                                       traj.poses_cw[:MAPPING_FRAMES])
+    map_launches, _fps, slam, align = phase_mapping(
+        mapping_seq, traj.poses_cw[:MAPPING_FRAMES])
+    reloc_launches, n_reloc = phase_reloc(slam, align, mapping_seq)
     check("jax" not in sys.modules, "jax was imported")
     n_loc = LOC_FRAMES[1] - LOC_FRAMES[0]
     for r in rows:
         r["launches"] = map_launches[r["name"]]
         r["launches_by_path"] = {"localization": loc_launches[r["name"]],
-                                 "mapping": map_launches[r["name"]]}
+                                 "mapping": map_launches[r["name"]],
+                                 "relocalization": reloc_launches[r["name"]]}
         # per tracked frame of the localization slice, per input frame of
-        # the mapping run (initialisation and backend inserts included)
+        # the mapping run (initialisation and backend inserts included) and
+        # of the kidnap (grey frames and relocalization attempts included)
         r["launches_per_frame"] = {
             "localization": loc_launches[r["name"]] / n_loc,
-            "mapping": map_launches[r["name"]] / MAPPING_FRAMES}
+            "mapping": map_launches[r["name"]] / MAPPING_FRAMES,
+            "relocalization": reloc_launches[r["name"]] / n_reloc}
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -1,17 +1,17 @@
 """Keyframe place-recognition database (port of coslam_tpu/models/
-keyframe_db.py: the constructor through `scores_for_bow`).
+keyframe_db.py: the constructor through `detect_reloc_candidates`).
 
 A dense (K, W) host matrix of BoW rows replaces the reference's inverted
 file (KeyFrameDatabase.cc:76-196); a query is one tf-idf-weighted L1 pass.
 The vocabulary lives on the System's device (`vocab`), the rows on the
 host as numpy, exactly as in the JAX package.  Still to port: online
-vocabulary retraining (ROADMAP Queue 1 item 11), `detect_reloc_candidates`
-(item 12) and `detect_loop_candidates` (item 13).
+vocabulary retraining (ROADMAP Queue 1 item 11) and
+`detect_loop_candidates` (item 13).
 """
 
 from __future__ import annotations
 
-from typing import Optional, Tuple
+from typing import List, Optional, Tuple
 
 import numpy as np
 import torch
@@ -135,3 +135,17 @@ class KeyFrameDatabase:
         q = row * idf
         q = q / max(np.abs(q).sum(), 1e-9)
         return 1.0 - 0.5 * np.abs(w - q[None]).sum(1)
+
+    # ------------------------------------------------------------------
+    def detect_reloc_candidates(self, desc: torch.Tensor, valid: torch.Tensor,
+                                top_k: int = 5) -> List[int]:
+        """Best keyframes for relocalizing a lost frame (reference
+        KeyFrameDatabase::DetectRelocalizationCandidates,
+        KeyFrameDatabase.cc:199: the same scoring, no temporal or
+        covisibility exclusion).  On the host, in numpy, as the reference."""
+        if not self.has.any():
+            return []
+        q = self.compute_bow(desc, valid)
+        scores = np.where(self.has, self.scores_for_bow(q), -1.0)
+        order = np.argsort(-scores)[:top_k]
+        return [int(i) for i in order if scores[i] > 0]

@@ -1,6 +1,7 @@
 """Per-frame tracking stages (port of coslam_tpu/models/tracking.py:
-TrackWithMotionModel, TrackReferenceKeyFrame, TrackLocalMap, the chunked
-steady-state loop `track_chunk` and `chain_carry_after_insert`).
+TrackWithMotionModel, TrackReferenceKeyFrame, TrackLocalMap, one
+relocalization attempt `relocalize_against_kf`, the chunked steady-state
+loop `track_chunk` and `chain_carry_after_insert`).
 
 Plain functions on tensors.  The reference's `lax.scan` over the two
 motion-model radii is a loop of two (both bodies always run, as in the
@@ -20,7 +21,7 @@ from coslam_tpu_torch.config import SystemConfig
 from coslam_tpu_torch.models import map_state as ms_mod
 from coslam_tpu_torch.models.frame import Frame, build_frame
 from coslam_tpu_torch.models.map_state import MapState
-from coslam_tpu_torch.ops import matching
+from coslam_tpu_torch.ops import matching, pnp
 from coslam_tpu_torch.optim import pose_opt
 from coslam_tpu_torch.utils import geometry as geo
 
@@ -103,6 +104,100 @@ def _motion_body(cfg: SystemConfig, m: MapState, frame: Frame,
                        n_inliers=res.n_inliers,
                        ref_kf=_const(-1, torch.int32, dev),
                        n_ref_matches=_const(0, torch.int64, dev))
+
+
+def relocalize_against_kf(cfg: SystemConfig, m: MapState, frame: Frame,
+                          cand_kf: int, samples=None,
+                          generator: Optional[torch.Generator] = None
+                          ) -> TrackResult:
+    """One relocalization attempt against a place-recognition candidate
+    (Tracking::Relocalization, Tracking.cc:1343-1468): dense matching to the
+    candidate's landmarks -> EPnP RANSAC -> pose optimization, then two
+    match-recovery rounds (a window-10 projection search against the
+    candidate's covisible local map with re-optimization and, when 30 <
+    inliers < 50, a window-3 round) before the caller's acceptance gate.
+    `samples` are the (iters, 6) RANSAC draws; without them they come from
+    `generator`.  No host sync: the caller reads `n_inliers`."""
+    cam = cfg.camera
+    dev = frame.uv.device
+    N = frame.uv.shape[0]
+    pt = m.kf_obs_pt[cand_kf]
+    pt_safe = torch.clamp(pt, min=0).long()
+    ok_t = (pt >= 0) & m.kf_kp_valid[cand_kf] & m.pt_valid[pt_safe]
+    # seed stage: mutual TH_HIGH matching without a ratio test (on
+    # low-feature frames it starves the solver) but with rotation
+    # consistency against the candidate's keypoint orientations: wrong
+    # matches carry random rotation offsets, and the inlier share enters the
+    # RANSAC success probability at the 6th power
+    mm = matching.match(frame.desc, frame.valid, m.pt_desc[pt_safe], ok_t,
+                        cfg.matcher, max_dist=cfg.matcher.th_high,
+                        mutual=True, angle_q=frame.angle,
+                        angle_t=m.kf_angle[cand_kf])
+    kp_pt = torch.where(
+        mm.valid, pt_safe[torch.clamp(mm.idx, min=0).long()].to(torch.int32),
+        -1)
+    ok = kp_pt >= 0
+    X = m.pt_pos[torch.clamp(kp_pt, min=0).long()]
+    if samples is None:
+        samples = pnp.draw_samples(ok, generator)
+    res_pnp = pnp.ransac_pnp(cam, X, frame.uv, ok, samples)
+    res = pose_opt.optimize_pose(cam, res_pnp.T, X, frame.uv,
+                                 ok & res_pnp.inliers, frame.inv_sigma2,
+                                 cfg.tracker)
+    kp_pt = torch.where(res.inliers, kp_pt, -1)
+
+    # the candidate's local map: points seen by its covisible window
+    # (Tracking.cc:1427-1465)
+    P = m.pt_pos.shape[0]
+    local_kf = ms_mod.covisibility_row(m, cand_kf) \
+        >= cfg.mapper.covis_edge_threshold
+    local_kf[cand_kf] = True
+    local_kf = local_kf & m.kf_valid
+    obs_ok = (m.kf_obs_pt >= 0) & m.kf_kp_valid & local_kf[:, None]
+    local_pt = torch.zeros(P, dtype=torch.int32, device=dev).scatter_reduce(
+        0, torch.clamp(m.kf_obs_pt, min=0).reshape(-1).long(),
+        obs_ok.reshape(-1).to(torch.int32), "amax") > 0
+    local_pt = local_pt & m.pt_valid
+    all_pts = torch.arange(P, dtype=torch.int32, device=dev)
+
+    def recovery_round(T_in, kp_pt_in, radius):
+        uv_pred, z = _project_points(cam, T_in, m.pt_pos)
+        vis = (local_pt & (z > 0.1)
+               & (uv_pred[:, 0] >= 0) & (uv_pred[:, 0] < cam.width)
+               & (uv_pred[:, 1] >= 0) & (uv_pred[:, 1] < cam.height))
+        free_kp = frame.valid & (kp_pt_in < 0)
+        mm2 = matching.match_windowed(
+            m.pt_desc, uv_pred, radius, vis, frame.desc, frame.uv, free_kp,
+            cfg.matcher, max_dist=cfg.matcher.th_high, mutual=True)
+        kp2 = torch.where(kp_pt_in >= 0, kp_pt_in,
+                          _scatter_assoc(N, mm2, all_pts))
+        r = pose_opt.optimize_pose(
+            cam, T_in, m.pt_pos[torch.clamp(kp2, min=0).long()], frame.uv,
+            kp2 >= 0, frame.inv_sigma2, cfg.tracker)
+        return r.T, torch.where(r.inliers, kp2, -1), r.n_inliers
+
+    # round 1 (window 10) only helps when the PnP pose is sane but starved
+    T1, kp1, n1 = recovery_round(res.T, kp_pt,
+                                 _const(10.0, torch.float32, dev))
+    use1 = (res.n_inliers >= 6) & (n1 > res.n_inliers)
+    T1 = torch.where(use1, T1, res.T)
+    kp1 = torch.where(use1, kp1, kp_pt)
+    n1 = torch.where(use1, n1, res.n_inliers)
+    # round 2 (window 3) when still short of the acceptance gate
+    T2, kp2, n2 = recovery_round(T1, kp1, _const(3.0, torch.float32, dev))
+    use2 = (n1 > 30) & (n1 < cfg.tracker.min_inliers_reloc) & (n2 > n1)
+    return TrackResult(T=torch.where(use2, T2, T1),
+                       kp_pt=torch.where(use2, kp2, kp1),
+                       n_matches=ok.sum(), n_inliers=torch.where(use2, n2, n1),
+                       ref_kf=_const(int(cand_kf), torch.int32, dev),
+                       n_ref_matches=_const(0, torch.int64, dev))
+
+
+def track_local_map(cfg: SystemConfig, m: MapState, frame: Frame,
+                    T_init, kp_pt_init):
+    """TrackLocalMap from a given pose and bindings (after a
+    relocalization).  Returns (TrackResult, map with updated counters)."""
+    return _local_map_body(cfg, m, frame, T_init, kp_pt_init)
 
 
 def _local_map_body(cfg: SystemConfig, m: MapState, frame: Frame,

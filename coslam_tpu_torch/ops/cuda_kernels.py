@@ -1,8 +1,9 @@
 """Hand-written CUDA kernels for the hot ops (the counterpart of
 coslam_tpu/ops/pallas_kernels.py), with their plain PyTorch twins.
 
-  * `fast_score_nms` (K1, csrc/fast_score_nms.cu) — FAST-9/16 score + 3x3
-    NMS in one shared-memory pass per pyramid level.
+  * `fast_score_nms_pyramid` (K1, csrc/fast_score_nms.cu) — FAST-9/16
+    score + 3x3 NMS + border mask of every pyramid level in one launch;
+    `fast_score_nms` is its one-level call without a border.
   * `masked_match`   (K2, csrc/masked_match.cu) — gated Hamming matcher:
     best / second-best distance and argmin per query, streaming targets
     as packed gate records and skipping whatever holds nothing.
@@ -28,7 +29,7 @@ import os
 import shutil
 import subprocess
 from pathlib import Path
-from typing import Dict, Optional, Tuple
+from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -101,7 +102,7 @@ _F = ctypes.c_float
 @functools.lru_cache(maxsize=1)
 def _lib() -> ctypes.CDLL:
     lib = ctypes.CDLL(str(library_path()))
-    lib.coslam_fast_score_nms.argtypes = [_P, _P, _I, _I, _P]
+    lib.coslam_fast_score_nms_pyramid.argtypes = [_P, _P, _P, _P, _I, _I, _P]
     lib.coslam_masked_match_segments.argtypes = [_I, _I]
     lib.coslam_masked_match_query_block.argtypes = [_I]
     lib.coslam_masked_match.argtypes = [
@@ -110,7 +111,8 @@ def _lib() -> ctypes.CDLL:
     lib.coslam_pose_opt_lm.argtypes = [
         _P, _P, _P, _P, _I, _F, _F, _F, _F, _I, _I, _F, _P, _P, _P]
     lib.coslam_pose_opt_lm_register_limit.argtypes = []
-    for fn in (lib.coslam_fast_score_nms, lib.coslam_masked_match_segments,
+    for fn in (lib.coslam_fast_score_nms_pyramid,
+               lib.coslam_masked_match_segments,
                lib.coslam_masked_match_query_block,
                lib.coslam_masked_match, lib.coslam_pose_opt_lm,
                lib.coslam_pose_opt_lm_register_limit):
@@ -156,24 +158,60 @@ def _stream(t: torch.Tensor) -> int:
 # K1: FAST score + NMS
 # ---------------------------------------------------------------------------
 
+K1_MAX_LEVELS = 8     # levels one launch takes (MAX_LEVELS in the source)
+
+
 def fast_score_nms_plain(img: torch.Tensor) -> torch.Tensor:
     return fast_ops.nms3(fast_ops.fast_score(img))
 
 
+def fast_score_nms_pyramid_plain(levels: Sequence[torch.Tensor],
+                                 margin: int) -> List[torch.Tensor]:
+    return [fast_score_nms_plain(l)
+            * fast_ops.border_mask_on(l.shape[0], l.shape[1], margin, l.device)
+            for l in levels]
+
+
+def fast_score_nms_pyramid(levels: Sequence[torch.Tensor],
+                           margin: int) -> List[torch.Tensor]:
+    """(H_l, W_l) float32 images -> their NMS'd FAST score maps with a
+    border of `margin` pixels set to zero, in one launch for up to 8 levels
+    (views of one allocation).  Agrees with nms3(fast_score(img)) *
+    border_mask at least 4 px inside the image (the reference wraps at the
+    image border, the kernel clamps): everywhere for margin >= 4."""
+    if not levels or not _on_cuda("fast_score_nms", *levels):
+        return fast_score_nms_pyramid_plain(levels, margin)
+    levels = [l.contiguous() for l in levels]
+    for l in levels:
+        _check("fast_score_nms img", l, torch.float32, (None, None))
+    if margin < 0:
+        raise ValueError(f"fast_score_nms: margin {margin}")
+    flat = torch.empty(sum(l.numel() for l in levels), dtype=torch.float32,
+                       device=levels[0].device)
+    outs, offset = [], 0
+    for l in levels:
+        outs.append(flat[offset:offset + l.numel()].view(l.shape))
+        offset += l.numel()
+    lib, stream = _lib(), _stream(flat)
+    for s in range(0, len(levels), K1_MAX_LEVELS):
+        ins, res = levels[s:s + K1_MAX_LEVELS], outs[s:s + K1_MAX_LEVELS]
+        n = len(ins)
+        rc = lib.coslam_fast_score_nms_pyramid(
+            (_P * n)(*[t.data_ptr() for t in ins]),
+            (_P * n)(*[t.data_ptr() for t in res]),
+            (_I * n)(*[t.shape[0] for t in ins]),
+            (_I * n)(*[t.shape[1] for t in ins]), n, int(margin), stream)
+        _raise_on(rc, "fast_score_nms")
+        LAUNCHES["fast_score_nms"] += 1
+    return outs
+
+
 def fast_score_nms(img: torch.Tensor) -> torch.Tensor:
-    """(H, W) float32 -> NMS'd FAST score map.  Agrees with
-    nms3(fast_score(img)) at least 4 px inside the border (the reference
-    wraps at the border, the kernel clamps)."""
+    """(H, W) float32 -> NMS'd FAST score map of one image, no border mask:
+    agrees with nms3(fast_score(img)) at least 4 px inside the border."""
     if not _on_cuda("fast_score_nms", img):
         return fast_score_nms_plain(img)
-    _check("fast_score_nms img", img, torch.float32, (None, None))
-    h, w = img.shape
-    out = torch.empty_like(img)
-    _raise_on(_lib().coslam_fast_score_nms(img.data_ptr(), out.data_ptr(),
-                                           h, w, _stream(img)),
-              "fast_score_nms")
-    LAUNCHES["fast_score_nms"] += 1
-    return out
+    return fast_score_nms_pyramid([img], 0)[0]
 
 
 # ---------------------------------------------------------------------------

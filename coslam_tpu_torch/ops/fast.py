@@ -5,7 +5,7 @@ score(p) = max over the 16 arc starts of the min signed difference along a
 9-long contiguous arc of the radius-3 Bresenham circle, for both signs; > t
 <=> p is a FAST corner at threshold t.  NMS keeps a score only where it
 equals the 3x3 max.  These are the plain versions of kernel K1
-(ops/cuda_kernels.fast_score_nms).
+(ops/cuda_kernels.fast_score_nms_pyramid).
 """
 
 from __future__ import annotations
@@ -53,3 +53,9 @@ def border_mask(h: int, w: int, margin: int) -> np.ndarray:
     m = np.zeros((h, w), np.float32)
     m[margin:h - margin, margin:w - margin] = 1.0
     return m
+
+
+@functools.lru_cache(maxsize=None)
+def border_mask_on(h: int, w: int, margin: int,
+                   device: torch.device) -> torch.Tensor:
+    return torch.from_numpy(border_mask(h, w, margin)).to(device)

@@ -2,14 +2,14 @@
 `level_budgets`, `_select_level_keypoints`, `extract_patches`,
 `_descriptors_from_patches`, `extract`).
 
-Per pyramid level: FAST score + NMS (kernel K1), the edge-threshold border
-mask, per-cell top-2 winners and a per-level top-k by score.  All levels'
-39x39 raw patches then go through two f32 matmuls: IC orientation and the
-Gaussian-blurred rBRIEF sample differences for 30 quantized rotations, the
-keypoint's rotation bin selecting its 8 packed descriptor words.  The
-numpy tables (`brief_pattern`, `_patch_matrices`) are the reference's,
-rebuilt bit for bit.  Descriptors are (N, 8) int32 holding the reference's
-uint32 bits.
+FAST score + NMS + the edge-threshold border mask of every pyramid level in
+one call (kernel K1), then per level the per-cell top-2 winners and a top-k
+by score.  All levels' 39x39 raw patches then go through two f32 matmuls: IC
+orientation and the Gaussian-blurred rBRIEF sample differences for 30
+quantized rotations, the keypoint's rotation bin selecting its 8 packed
+descriptor words.  The numpy tables (`brief_pattern`, `_patch_matrices`) are
+the reference's, rebuilt bit for bit.  Descriptors are (N, 8) int32 holding
+the reference's uint32 bits.
 """
 
 from __future__ import annotations
@@ -22,7 +22,6 @@ import torch
 
 from coslam_tpu_torch.config import ExtractorConfig
 from coslam_tpu_torch.ops import cuda_kernels as ck
-from coslam_tpu_torch.ops import fast as fast_ops
 from coslam_tpu_torch.ops import pyramid as pyr_ops
 
 PATCH_RADIUS = 15  # reference HALF_PATCH_SIZE (ORBextractor.cc:73)
@@ -90,11 +89,6 @@ def _patch_matrices_on(device: torch.device):
     # jax (x64 off) takes it as float32, exactly, since it holds small ints
     return tuple(torch.from_numpy(a).to(device, torch.float32)
                  for a in _patch_matrices())
-
-
-@functools.lru_cache(maxsize=None)
-def _border_mask_on(h: int, w: int, margin: int, device: torch.device):
-    return torch.from_numpy(fast_ops.border_mask(h, w, margin)).to(device)
 
 
 def level_budgets(cfg: ExtractorConfig) -> List[int]:
@@ -206,24 +200,26 @@ def extract(img: torch.Tensor, cfg: ExtractorConfig) -> Dict[str, torch.Tensor]:
     N = cfg.max_keypoints
     dev = img.device
 
-    uv_l, resp_l, lvl_l, ok_l, patch_l = [], [], [], [], []
-    offset = 0
-    for lvl, (img_l, budget) in enumerate(zip(levels, budgets)):
+    used, offset = [], 0
+    for lvl, budget in enumerate(budgets):
         if budget == 0 or offset >= N:
             continue
         budget = min(budget, N - offset)
-        h, w = img_l.shape
-        score = ck.fast_score_nms(img_l.contiguous())
+        used.append((lvl, levels[lvl], budget))
+        offset += budget
+    scores = ck.fast_score_nms_pyramid([img_l for _, img_l, _ in used],
+                                       cfg.edge_threshold)
+
+    uv_l, resp_l, lvl_l, ok_l, patch_l = [], [], [], [], []
+    for (lvl, img_l, budget), score in zip(used, scores):
         yx, resp, ok = _select_level_keypoints(
-            score * _border_mask_on(h, w, cfg.edge_threshold, dev), budget,
-            cfg.cell_size, float(cfg.fast_min_threshold))
+            score, budget, cfg.cell_size, float(cfg.fast_min_threshold))
         scale = cfg.scale_factor ** lvl
         uv_l.append(yx.flip(1).to(torch.float32) * scale)
         resp_l.append(resp)
         lvl_l.append(torch.full((budget,), lvl, dtype=torch.int32, device=dev))
         ok_l.append(ok)
         patch_l.append(extract_patches(img_l, yx))
-        offset += budget
 
     valid = torch.cat(ok_l)
     angle, desc = _descriptors_from_patches(torch.cat(patch_l), valid)

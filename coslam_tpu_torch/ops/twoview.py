@@ -44,13 +44,15 @@ def _k_matrix(cam: CameraConfig, device) -> torch.Tensor:
 
 
 def draw_samples(valid: torch.Tensor, iters: int,
-                 generator: torch.Generator) -> torch.Tensor:
-    """(iters, 8) sample indices drawn with replacement, uniformly over the
-    valid matches (the reference's p = valid / sum)."""
+                 generator: torch.Generator, size: int = 8) -> torch.Tensor:
+    """(iters, size) sample indices drawn with replacement, uniformly over
+    the valid matches (the reference's p = valid / sum); over all of them
+    where none is valid (no hypothesis can win then)."""
     p = valid.to(torch.float32)
+    p = torch.where(p.sum() > 0, p, torch.ones_like(p))
     p = p / (p.sum() + 1e-9)
-    return torch.multinomial(p, iters * 8, replacement=True,
-                             generator=generator).reshape(iters, 8)
+    return torch.multinomial(p, iters * size, replacement=True,
+                             generator=generator).reshape(iters, size)
 
 
 def _normalize(uv, valid):

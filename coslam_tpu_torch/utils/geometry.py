@@ -111,6 +111,21 @@ def transform_points(T: torch.Tensor, pts: torch.Tensor) -> torch.Tensor:
     return pts @ rot(T).transpose(-1, -2) + trans(T)[..., None, :]
 
 
+def quat_to_rot(q: torch.Tensor) -> torch.Tensor:
+    """Quaternion (..., 4) as (w, x, y, z), any norm and either sign ->
+    rotation (..., 3, 3)."""
+    q = q / (torch.linalg.vector_norm(q, dim=-1, keepdim=True) + _EPS)
+    w, x, y, z = q[..., 0], q[..., 1], q[..., 2], q[..., 3]
+    return torch.stack([
+        torch.stack([1 - 2 * (y * y + z * z), 2 * (x * y - w * z),
+                     2 * (x * z + w * y)], -1),
+        torch.stack([2 * (x * y + w * z), 1 - 2 * (x * x + z * z),
+                     2 * (y * z - w * x)], -1),
+        torch.stack([2 * (x * z - w * y), 2 * (y * z + w * x),
+                     1 - 2 * (x * x + y * y)], -1),
+    ], dim=-2)
+
+
 def rot_to_quat(R: torch.Tensor) -> torch.Tensor:
     """Rotation (..., 3, 3) -> unit quaternion (..., 4) as (w, x, y, z):
     Shepperd's method, branchless (the reference's `rot_to_quat`)."""

@@ -1,9 +1,10 @@
-"""Seeded inputs for kernels K2 `masked_match` and K3 `pose_opt_lm` at the
-shapes the tracking and mapping paths give them.
+"""Seeded inputs for kernels K1 `fast_score_nms_pyramid`, K2 `masked_match`
+and K3 `pose_opt_lm` at the shapes the tracking and mapping paths give them.
 
 `chip_smoke.py` and `scripts/compare_torch_kernels.py` both walk `MATCH_CASES`
 and then `POSE_CASES` in order with one `numpy.random.default_rng(0)`, so the
-two time the same inputs under the same names.
+two time the same inputs under the same names; K1's input is a rendered
+frame and draws nothing.
 """
 
 from __future__ import annotations
@@ -13,6 +14,27 @@ import torch
 
 POSE_KW = dict(fx=400.0, fy=400.0, cx=320.0, cy=240.0, rounds=4, iters=10,
                chi2_th=5.991)
+
+
+FAST_MARGIN = 19      # ExtractorConfig.edge_threshold
+
+
+def fast_inputs(dev, width=640, height=480):
+    """The pyramid levels K1 sees on a frame of the synthetic reference
+    workload (frame 80, the first of the localization slice), as contiguous
+    float32 tensors on `dev`."""
+    from coslam_tpu_torch.config import CameraConfig, ExtractorConfig
+    from coslam_tpu_torch.ops import pyramid
+    from coslam_tpu_torch.utils import synthetic
+    cam = CameraConfig(fx=400.0 * width / 640, fy=400.0 * width / 640,
+                       cx=width / 2, cy=height / 2, width=width,
+                       height=height)
+    poses = synthetic.make_trajectory(360, seed=3).poses_cw[80:81]
+    img = synthetic.render_sequence(cam, synthetic.Trajectory(poses),
+                                    synthetic.make_scene(600, seed=3))[0]
+    return [l.contiguous() for l in pyramid.build_pyramid(
+        torch.as_tensor(img, device=dev),
+        ExtractorConfig(n_features=1000, max_keypoints=1024))]
 
 
 def _match_cases():

@@ -1,5 +1,5 @@
-"""Times kernels K2 `masked_match` and K3 `pose_opt_lm` of coslam_tpu_torch on
-the GPU, for one checkout or for two checkouts in turns on the same card.
+"""Times kernels K1 `fast_score_nms`, K2 `masked_match` and K3 `pose_opt_lm`
+of coslam_tpu_torch on the GPU, for one checkout or for two checkouts in turns on the same card.
 
     python3 scripts/compare_torch_kernels.py                  # this checkout
     python3 scripts/compare_torch_kernels.py --parent DIR     # DIR vs this one
@@ -19,6 +19,10 @@ synchronise at the end), as one JSON object on the last line.  The inputs are
 those of coslam_tpu_torch/utils/kernel_cases.py, which chip_smoke.py times
 too:
 
+  * K1: the 8-level pyramid of a rendered 640x480 frame with the
+    extractor's 19-px border (one launch; a checkout from before the
+    pyramid entry scores it in 8 launches and masks outside the kernel, and
+    its 8 kernels are what is timed);
   * K2 dense: 1024x1024, 32768x1024, 1024x32768, 16384x1024, 1024x16384
     (90% of either side valid, octave gate and per-target radii on);
   * K2 map-like: a point table of 32768 slots with the first 361 valid, and
@@ -108,7 +112,28 @@ def measure() -> dict:
     out = {"card": subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True,
-        text=True).stdout.strip(), "k2_ms": {}, "k3_ms": {}}
+        text=True).stdout.strip(), "k1_ms": {}, "k2_ms": {}, "k3_ms": {}}
+
+    levels = kc.fast_inputs(dev)
+    name = f"{len(levels)}-level pyramid of 480x640, margin {kc.FAST_MARGIN}"
+    if hasattr(ck, "fast_score_nms_pyramid"):
+        def k1():
+            return ck.fast_score_nms_pyramid(levels, kc.FAST_MARGIN)
+    else:
+        def k1():
+            return [ck.fast_score_nms(l) for l in levels]
+    kept = np.s_[kc.FAST_MARGIN:-kc.FAST_MARGIN,
+                 kc.FAST_MARGIN:-kc.FAST_MARGIN]
+    before = ck.LAUNCHES["fast_score_nms"]
+    got = k1()
+    launches = ck.LAUNCHES["fast_score_nms"] - before
+    err = max(float((g[kept] - ck.fast_score_nms_plain(l)[kept]).abs().max())
+              for g, l in zip(got, levels))
+    assert err <= 1e-5, f"K1: differs from the twin by {err}"
+    out["k1_ms"][name] = device_ms(k1, "fast_score_nms")
+    out["k1_host_us"] = host_us(k1)
+    print(f"K1 {name}: max err {err:g} in the kept region, {launches} "
+          f"launches, {out['k1_ms'][name] * 1e3:.2f} us", flush=True)
 
     for name, n, m, nvq, nvt in kc.MATCH_CASES:
         args, kw = kc.match_inputs(rng, dev, n, m, nvq, nvt)
@@ -171,13 +196,14 @@ def main() -> int:
             ("change", run_checkout(HERE)), ("parent", run_checkout(a.parent))]
     print(runs[0][1]["card"])
     rows = []
-    for key in ("k2_ms", "k3_ms"):
+    for key in ("k1_ms", "k2_ms", "k3_ms"):
         for name in runs[0][1][key]:
             p = [r[key][name] * 1e3 for w, r in runs if w == "parent"]
             c = [r[key][name] * 1e3 for w, r in runs if w == "change"]
             rows.append((f"{key[:2].upper()} {name}", p, c))
-    for key in ("k2_host_us", "k3_host_us"):
-        rows.append((f"{key[:2].upper()} wrapper host us per call",
+    for key in ("k1_host_us", "k2_host_us", "k3_host_us"):
+        rows.append((f"{key[:2].upper()} wrapper host us per call"
+                     + (" (a pyramid)" if key == "k1_host_us" else ""),
                      [r[key] for w, r in runs if w == "parent"],
                      [r[key] for w, r in runs if w == "change"]))
     print(f"{'case (device us per launch)':58s} {'parent':>17s} "

@@ -15,7 +15,14 @@ Runs the JAX package (`coslam_tpu`) on the CPU:
      initialisation frame, the
      per-frame poses / inlier counts / keyframe flags, the keyframe and
      valid-point counts, the final keyframe poses and the ATE.  No map
-     arrays.
+     arrays;
+  4. carries that run on through a kidnap (RELOC_BLANK grey frames, then
+     frames RELOC_RETURN of the same sequence, a viewpoint mapped earlier)
+     and writes `smoke_reloc_expected.npz`: per frame the state, lost flag,
+     inlier count and pose, the frame the run recovered on with the
+     accepted candidate keyframe, and per relocalization attempt the frame
+     count, the place-recognition candidates and the EPnP draws
+     `ransac_pnp` made for each.
 
 The workload is the bench's (bench.py:140-160: 640x480, 1000 features,
 max_keypoints=1024, make_scene(600, seed=3), make_trajectory(360, seed=3))
@@ -23,7 +30,11 @@ with the keyframe throttle pinned to 3 frames, so that the map does not
 depend on host speed; the localization map uses the default capacity
 (K=256, P=32768), the mapping run the bench's (K=64, P=16384).
 
-    JAX_PLATFORMS=cpu python scripts/make_torch_smoke_assets.py [--mapping-only]
+    JAX_PLATFORMS=cpu python scripts/make_torch_smoke_assets.py \
+        [--mapping-only | --reloc-only]
+
+--mapping-only rebuilds steps 3 and 4, --reloc-only step 4 alone (it still
+runs step 3's mapping, without writing its file).
 """
 
 from __future__ import annotations
@@ -43,12 +54,15 @@ import jax.numpy as jnp  # noqa: E402
 from coslam_tpu.config import (CameraConfig, ExtractorConfig,  # noqa: E402
                                MapperConfig, SystemConfig, TrackerConfig)
 from coslam_tpu.models import system as jsystem  # noqa: E402
+from coslam_tpu.ops import matching as jmatching  # noqa: E402
 from coslam_tpu.models.system import System  # noqa: E402
 from coslam_tpu.utils import checkpoint, evaluation, synthetic  # noqa: E402
 
 MAP_FRAMES = 80
 LOC_FRAMES = (80, 120)
 MAPPING_FRAMES = 120
+RELOC_BLANK = 3                    # grey frames, ids 1000 ..
+RELOC_RETURN = tuple(range(28, 34))   # then these frames again, ids 2000 + i
 ASSETS = os.path.join(ROOT, "coslam_tpu_torch", "assets")
 
 
@@ -74,6 +88,36 @@ class DrawRecordingSystem(System):
     def __init__(self, *a, **kw):
         super().__init__(*a, **kw)
         self.draws = {}
+        self.attempts = []     # (frames seen, candidates, draws, accepted)
+
+    def _attempt_relocalization(self, frame):
+        """Records, per attempt, the candidates and the (512, 6) indices
+        `pnp.ransac_pnp` draws inside `relocalize_against_kf` for each: the
+        same seed matching, then the same `jax.random.choice` with the key
+        of models/system.py:981-984."""
+        cands = self.db.detect_reloc_candidates(frame.desc, frame.valid,
+                                                top_k=5)
+        base = jax.random.fold_in(self._init_key, self.n_frames_tracked)
+        m = self.map
+        draws = []
+        for c in cands:
+            pt = m.kf_obs_pt[c]
+            pt_safe = jnp.maximum(pt, 0)
+            ok_t = (pt >= 0) & m.kf_kp_valid[c] & m.pt_valid[pt_safe]
+            mm = jmatching.match(
+                frame.desc, frame.valid, m.pt_desc[pt_safe], ok_t,
+                self.cfg.matcher, max_dist=self.cfg.matcher.th_high,
+                mutual=True, angle_q=frame.angle, angle_t=m.kf_angle[c])
+            p = mm.valid.astype(jnp.float32)
+            p = p / (p.sum() + 1e-9)
+            draws.append(np.asarray(jax.random.choice(
+                jax.random.fold_in(base, c), frame.uv.shape[0], (512, 6),
+                replace=True, p=p), np.int16))
+        best = super()._attempt_relocalization(frame)
+        self.attempts.append((self.n_frames_tracked, cands, draws,
+                              -1 if best is None else int(best.ref_kf),
+                              0 if best is None else int(best.n_inliers)))
+        return best
 
     def _try_initialize(self, frame, frame_id):
         if self.ref_frame is not None:
@@ -146,7 +190,57 @@ def later_draws(s: DrawRecordingSystem, seq, ref_id: int, frames) -> None:
             replace=True, p=p), np.int32)
 
 
-def mapping_reference(seq, poses) -> None:
+def reloc_reference(s: DrawRecordingSystem, seq, poses) -> None:
+    """Carries the mapping run on through a kidnap and records it."""
+    t0 = time.perf_counter()
+    assert s.state == "OK"
+    blank = np.full_like(seq[0], 96)
+    frames = [(1000 + i, blank, -1) for i in range(RELOC_BLANK)] \
+        + [(2000 + i, seq[i], i) for i in RELOC_RETURN]
+    rows = []
+    for fid, img, _src in frames:
+        T = s.track_mono(img, fid)
+        st = s.stats[-1]
+        rows.append((fid, s.state == "OK", bool(st["lost"]), st["inliers"],
+                     np.asarray(T, np.float32)))
+        print(f"  frame {fid}: state {s.state}, inliers {st['inliers']}, "
+              f"relocalizations {getattr(s, 'n_relocalizations', 0)}")
+    s.shutdown()
+    lost = np.array([r[2] for r in rows])
+    assert lost[:RELOC_BLANK].all(), "the reference run did not get lost"
+    back = [r[0] for r in rows[RELOC_BLANK:] if r[1]]
+    assert back and back[0] < 2000 + RELOC_RETURN[4], \
+        f"the reference run did not recover within 4 frames: {back}"
+    att = s.attempts
+    cands = np.full((len(att), 5), -1, np.int32)
+    draws = np.zeros((len(att), 5, 512, 6), np.int16)
+    for a, (_n, cs, ds, _acc, _inl) in enumerate(att):
+        cands[a, :len(cs)] = cs
+        for j, d in enumerate(ds):
+            draws[a, j] = d
+    src = np.asarray([f[2] for f in frames], np.int32)
+    print(f"kidnap after frame {MAPPING_FRAMES - 1}: lost on "
+          f"{int(lost.sum())} frames, recovered on frame {back[0]} against "
+          f"keyframe {[a[3] for a in att if a[3] >= 0][0]} with "
+          f"{[a[4] for a in att if a[3] >= 0][0]} inliers, "
+          f"{getattr(s, 'n_relocalizations', 0)} relocalizations, "
+          f"{len(att)} attempts ({time.perf_counter() - t0:.1f} s)")
+    np.savez_compressed(
+        os.path.join(ASSETS, "smoke_reloc_expected.npz"),
+        frame_ids=np.asarray([r[0] for r in rows], np.int32), source=src,
+        ok=np.asarray([r[1] for r in rows]), lost=lost,
+        n_inliers=np.asarray([r[3] for r in rows], np.int32),
+        T=np.stack([r[4] for r in rows]),
+        gt_T=np.stack([poses[max(i, 0)] for i in src]).astype(np.float32),
+        recovered_frame=np.int32(back[0]),
+        n_relocalizations=np.int32(getattr(s, "n_relocalizations", 0)),
+        attempt_frames_seen=np.asarray([a[0] for a in att], np.int32),
+        attempt_candidates=cands, attempt_draws=draws,
+        attempt_accepted=np.asarray([a[3] for a in att], np.int32),
+        attempt_inliers=np.asarray([a[4] for a in att], np.int32))
+
+
+def mapping_reference(seq, poses, write: bool = True) -> DrawRecordingSystem:
     """The mapping workload from the first frame, loop closing off."""
     t0 = time.perf_counter()
     s = DrawRecordingSystem(mapping_config(), enable_loop_closing=False)
@@ -171,6 +265,8 @@ def mapping_reference(seq, poses) -> None:
           f"{init_frame} (reference frame {ids[0]}), {n_attempts} "
           f"attempts, {n_kf} keyframes, {n_pt} points, lost {lost}, "
           f"ATE {ate:.5f} ({time.perf_counter() - t0:.1f} s)")
+    if not write:
+        return s
     np.savez_compressed(
         os.path.join(ASSETS, "smoke_mapping_expected.npz"),
         draw_frames=np.asarray(attempts, np.int32),
@@ -184,6 +280,7 @@ def mapping_reference(seq, poses) -> None:
         kf_frame_id=np.asarray(s.map.kf_frame_id)[kf_valid],
         kf_pose=np.asarray(s.map.kf_pose)[kf_valid].astype(np.float32),
         gt_T=gt.astype(np.float32), ate=np.float64(ate))
+    return s
 
 
 def main() -> int:
@@ -194,11 +291,13 @@ def main() -> int:
     seq = synthetic.render_sequence(cfg.camera,
                                     synthetic.Trajectory(poses), scene)
     os.makedirs(ASSETS, exist_ok=True)
-    if "--mapping-only" not in sys.argv:
+    reloc_only = "--reloc-only" in sys.argv
+    if "--mapping-only" not in sys.argv and not reloc_only:
         map_and_localize(seq, poses)
-    mapping_reference(seq, poses)
+    reloc_reference(mapping_reference(seq, poses, write=not reloc_only),
+                    seq, poses)
     for name in ("smoke_map.npz", "smoke_expected.npz",
-                 "smoke_mapping_expected.npz"):
+                 "smoke_mapping_expected.npz", "smoke_reloc_expected.npz"):
         p = os.path.join(ASSETS, name)
         print(f"{p}: {os.path.getsize(p)} bytes")
     return 0

@@ -28,17 +28,73 @@ def gen():
     return np.random.default_rng(7)
 
 
+def _image(gen, dev, shape):
+    return torch.as_tensor(gen.integers(0, 255, shape).astype(np.float32)
+                           + gen.uniform(0, 1, shape).astype(np.float32),
+                           device=dev)
+
+
 @pytest.mark.parametrize("shape", [(480, 640), (134, 179), (37, 45)])
 def test_fast_score_nms(dev, gen, shape):
-    img = torch.as_tensor(gen.integers(0, 255, shape).astype(np.float32)
-                          + gen.uniform(0, 1, shape).astype(np.float32),
-                          device=dev)
+    """The one-level entry, no border mask: equal to the twin away from the
+    image border, where the twin wraps and the kernel clamps."""
+    img = _image(gen, dev, shape)
     before = ck.LAUNCHES["fast_score_nms"]
     got = ck.fast_score_nms(img)
     assert ck.LAUNCHES["fast_score_nms"] == before + 1
     ref = ck.fast_score_nms_plain(img)
     torch.testing.assert_close(got[8:-8, 8:-8], ref[8:-8, 8:-8], atol=1e-5,
                                rtol=0)
+    # 4 px inside is enough: 3 for the circle, 1 for the NMS window
+    assert torch.equal(got[4:-4, 4:-4], ref[4:-4, 4:-4])
+
+
+@pytest.mark.parametrize("shapes,margin", [
+    ([(480, 640), (400, 533), (333, 444), (278, 370), (231, 309), (193, 257),
+      (161, 214), (134, 179)], 19),                # the path's pyramid
+    ([(480, 640), (400, 533), (333, 444), (278, 370), (231, 309), (193, 257),
+      (161, 214), (134, 179)], 0),
+    ([(400, 533), (134, 179)], 19),                # odd widths, two levels
+    ([(480, 640)], 19),
+    ([(9, 11), (14, 62), (15, 63)], 0),            # under and around one tile
+    ([(50, 70), (40, 41), (38, 100)], 19),         # a kept region of 0-2 px
+    ([(60, 200)], 4), ([(60, 200)], 33)])
+def test_fast_score_nms_pyramid(dev, gen, shapes, margin):
+    """One launch for all levels, the border mask inside: every level equal
+    to the twin (everywhere for margin >= 4, else 4 px inside)."""
+    levels = [_image(gen, dev, s) for s in shapes]
+    before = ck.LAUNCHES["fast_score_nms"]
+    got = ck.fast_score_nms_pyramid(levels, margin)
+    assert ck.LAUNCHES["fast_score_nms"] == before + 1
+    ref = ck.fast_score_nms_pyramid_plain(levels, margin)
+    assert len(got) == len(levels)
+    for g, r, img in zip(got, ref, levels):
+        assert g.shape == img.shape and g.is_contiguous()
+        if margin >= 4:
+            torch.testing.assert_close(g, r, atol=1e-5, rtol=0)
+            assert torch.equal(g, r)
+        elif min(img.shape) > 8:
+            assert torch.equal(g[4:-4, 4:-4], r[4:-4, 4:-4])
+        assert bool(torch.isfinite(g).all())
+
+
+def test_fast_score_nms_pyramid_more_levels_than_a_launch_takes(dev, gen):
+    levels = [_image(gen, dev, (40 + i, 50 + i)) for i in range(10)]
+    before = ck.LAUNCHES["fast_score_nms"]
+    got = ck.fast_score_nms_pyramid(levels, 5)
+    assert ck.LAUNCHES["fast_score_nms"] == before + 2
+    for g, r in zip(got, ck.fast_score_nms_pyramid_plain(levels, 5)):
+        assert torch.equal(g, r)
+
+
+def test_fast_score_nms_rejects_bad_inputs(dev, gen):
+    img = _image(gen, dev, (40, 50))
+    with pytest.raises(TypeError):
+        ck.fast_score_nms_pyramid([img.to(torch.float64)], 19)
+    with pytest.raises(ValueError):
+        ck.fast_score_nms_pyramid([img, img.cpu()], 19)
+    with pytest.raises(ValueError):
+        ck.fast_score_nms_pyramid([img], -1)
 
 
 def _match_inputs(gen, dev, n, m, n_valid_q=None, n_valid_t=None):

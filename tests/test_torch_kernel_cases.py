@@ -17,6 +17,18 @@ def test_named_cases_exist():
     assert kc.POSE_MAIN_PATH in [c[0] for c in kc.POSE_CASES]
 
 
+def test_fast_inputs_through_the_twin():
+    levels = kc.fast_inputs("cpu", 160, 120)
+    assert [tuple(l.shape) for l in levels][:2] == [(120, 160), (100, 133)]
+    assert len(levels) == 8 and all(l.dtype == torch.float32 for l in levels)
+    scores = ck.fast_score_nms_pyramid(levels[:3], kc.FAST_MARGIN)
+    for img, s in zip(levels, scores):
+        assert s.shape == img.shape
+        m = kc.FAST_MARGIN
+        assert float(s[:m].abs().max()) == 0 == float(s[:, -m:].abs().max())
+    assert float(scores[0].max()) > 0
+
+
 @pytest.mark.parametrize("n,m,nvq,nvt,any_match", [
     (64, 256, None, None, True), (256, 64, 20, None, True),
     (64, 256, None, 20, True), (64, 256, None, 0, False),

@@ -128,7 +128,8 @@ def test_track_chunk_matches_reference(saved_map):
 
 def test_unported_paths_raise():
     """What is still unported raises, naming its ROADMAP item: loop closing
-    (13), relocalization (12) and stereo / RGB-D (14)."""
+    (13) and stereo / RGB-D (14).  A frame that tracks nothing no longer
+    raises: the System goes LOST and dead-reckons."""
     with pytest.raises(NotImplementedError, match="item 13"):
         TSystem(_cfg(tcfg), device="cpu", enable_loop_closing=True)
     ts = TSystem(_cfg(tcfg), device="cpu")
@@ -136,7 +137,10 @@ def test_unported_paths_raise():
     ts.state = "OK"
     ts.last_kp_pt = torch.full((512,), -1, dtype=torch.int32)
     ts.last_level = torch.zeros(512, dtype=torch.int32)
-    with pytest.raises(NotImplementedError, match="item 12"):
-        ts.track_mono(img, 0)          # a blank frame tracks 0 inliers
+    T = ts.track_mono(img, 0)          # a blank frame tracks 0 inliers
+    assert ts.state == "LOST" and ts.stats[-1]["lost"]
+    np.testing.assert_array_equal(T, np.eye(4, dtype=np.float32))
+    assert ts.velocity is None and int(ts.last_kp_pt.max()) == -1
+    assert ts.shutdown()["relocalizations"] == 0
     with pytest.raises(NotImplementedError, match="item 14"):
         ts.run_sequence([img], depths=[img])
