@@ -51,8 +51,39 @@ lines):
      run's, and that K2 and K3 ran inside the attempts; prints ms per
      attempt (CUDA events) beside the JAX run's outcome.
 
+  6. loop closing, at full width (640x480, 1000 features, K=96 keyframes,
+     P=16384 points; 1.25 laps round a cylinder scene, 115 frames, default
+     LoopConfig), in two halves:
+     (a) on the JAX package's own map: the map handed to the JAX run's
+     closing `LoopCloser.on_keyframe` call
+     (coslam_tpu_torch/assets/smoke_loop_map.npz, with the database's BoW
+     rows and consistency groups, the closer's state and the Sim3 draws) is
+     loaded on the card, `on_keyframe` runs with the draws injected, then
+     `maybe_run_gba`.  Checks the accepted candidate, the expanded inlier
+     count, s / R / t, the keyframe centres after the correction and after
+     the global BA against coslam_tpu_torch/assets/smoke_loop_expected.npz,
+     and that K2 ran inside `expand_sim3_matches`;
+     (b) end to end over the revisit: `System(cfg, device="cuda",
+     enable_loop_closing=True)` resumes the JAX run's checkpoint of frame 69
+     (coslam_tpu_torch/assets/smoke_loop_resume.npz, with its trajectory
+     log) and `run_sequence` takes frames 70-114, then the same with loop
+     closing off.  Checks 0 lost frames, a loop closed within 3 keyframes of
+     the JAX run's closing keyframe, ATE over the whole trajectory at most
+     0.01 above the JAX run's and below the run's without loop closing;
+     (c) from the first frame, with and without loop closing.  The port's
+     run parts ways with the JAX run long before the revisit (PERF.md,
+     Findings), and by then its tracker may have joined the old map on its own:
+     checks 0 lost frames, ATE within LOOP_ATE_BAR of the JAX run's, and
+     either a loop closed within 3 keyframes of the JAX run's or the
+     revisit's first keyframes connected to the loop's first keyframes by
+     shared landmarks (which takes them out of the detector's reach).
+     (b) and (c) print ms per `on_keyframe` that closes and per one that
+     does not, ms of `correct_loop` and `global_ba` (CUDA events), host
+     readbacks per `on_keyframe`, K2 launches per closure and frames/s with
+     and without loop closing.
+
 The second-to-last line is a JSON object with each kernel's launches (in
-the mapping run; `launches_by_path` and `launches_per_frame` have all three
+the mapping run; `launches_by_path` and `launches_per_frame` have all four
 runs), error, times and bound.  K2's and K3's headline numbers are those of
 the inputs most like the paths' own (the mapping path's pair of launches on
 a map-like table; 215 of 1024 observations with information); the other
@@ -78,6 +109,14 @@ ROOT = os.path.dirname(os.path.abspath(__file__))
 ASSETS = os.path.join(ROOT, "coslam_tpu_torch", "assets")
 LOC_FRAMES = (80, 120)
 MAPPING_FRAMES = 120
+LOOP_FRAMES = 115                  # 1.25 laps: the revisit begins at frame 92
+LOOP_SEED = 5
+LOOP_SPLIT = 70                    # the JAX run's checkpoint: frames 0-69
+# From the first frame the port's run and the JAX run part ways before the
+# revisit (initialisation frame, keyframe cadence) and two runs of the port
+# on the card differ as well (scatter-add order): ATE between 0.108 and
+# 0.133 over three runs against the JAX run's 0.107 (PERF.md, Findings).
+LOOP_ATE_BAR = 0.04
 TPU_KERNELS = "coslam_tpu/ops/pallas_kernels.py"
 # The JAX run's initialisation frame is decided by f32 rounding: at its
 # frame 13 the winning F hypothesis leads the runner-up by less than the
@@ -751,6 +790,331 @@ def phase_reloc(slam, align, seq: np.ndarray):
     return launches, len(frames)
 
 
+def loop_config():
+    import dataclasses
+    cfg = smoke_config()
+    return cfg.replace(mapper=dataclasses.replace(
+        cfg.mapper, max_keyframes=96, max_points=16384))
+
+
+class EventTimer:
+    """Replaces `owner.name` by a wrapper that brackets each call with CUDA
+    events and counts K2 launches inside it."""
+
+    def __init__(self, owner, name: str):
+        self.owner, self.name = owner, name
+        self.inner = getattr(owner, name)
+        self.events, self.k2, self.results = [], [], []
+
+    def __enter__(self):
+        from coslam_tpu_torch.ops import cuda_kernels as ck
+
+        def timed(*a, **kw):
+            start = torch.cuda.Event(enable_timing=True)
+            stop = torch.cuda.Event(enable_timing=True)
+            k2 = ck.LAUNCHES["masked_match"]
+            start.record()
+            out = self.inner(*a, **kw)
+            stop.record()
+            self.events.append((start, stop))
+            self.k2.append(ck.LAUNCHES["masked_match"] - k2)
+            self.results.append(out)
+            return out
+
+        setattr(self.owner, self.name, timed)
+        return self
+
+    def __exit__(self, *exc):
+        setattr(self.owner, self.name, self.inner)
+
+    def ms(self):
+        torch.cuda.synchronize()
+        return [a.elapsed_time(b) for a, b in self.events]
+
+
+def centres(T: np.ndarray) -> np.ndarray:
+    return -np.einsum("kji,kj->ki", T[:, :3, :3], T[:, :3, 3])
+
+
+def saved_map_closer(cfg, ex):
+    """A LoopCloser and its database in the state the JAX run's had before
+    its closing `on_keyframe` call (`ex`: the extras of smoke_loop_map.npz),
+    with that call's Sim3 draws injected."""
+    from coslam_tpu_torch.models import keyframe_db as kdb
+    from coslam_tpu_torch.models import loop_closing as lc
+
+    db = kdb.KeyFrameDatabase(cfg, vocab=ex["db_vocab"], device="cuda")
+    db.bows, db.has = ex["db_bows"].copy(), ex["db_has"].copy()
+    if ex["cg_groups"].shape[0]:
+        db._consistent_groups = (ex["cg_groups"], ex["cg_counts"])
+    c = lc.LoopCloser(cfg, db)
+    c.last_loop_kf = int(ex["last_loop_kf"])
+    c.loop_edges = [tuple(int(v) for v in e) for e in ex["loop_edges"]]
+    for pair, d in zip(ex["sim3_draw_pairs"], ex["sim3_draws"]):
+        c.sim3_draws[(int(pair[0]), int(pair[1]))] = d
+    return c
+
+
+def phase_loop_map(card: str):
+    """Half (a): the closing call on the JAX package's own map."""
+    from coslam_tpu_torch.models import loop_closing as lc
+    from coslam_tpu_torch.ops import cuda_kernels as ck
+    from coslam_tpu_torch.utils import checkpoint
+
+    cfg = loop_config()
+    exp = np.load(os.path.join(ASSETS, "smoke_loop_expected.npz"))
+    m, ex = checkpoint.load_map(os.path.join(ASSETS, "smoke_loop_map.npz"),
+                                device="cuda")
+    check(m.kf_pose.shape[0] == cfg.mapper.max_keyframes
+          and m.kf_uv.shape[1] == cfg.extractor.max_keypoints
+          and m.pt_pos.shape[0] == cfg.mapper.max_points,
+          "the saved map is not at the full width")
+    kf_id = int(ex["kf_id"])
+
+    # warm-up: the first call pays for cuSOLVER / cuBLAS handles
+    w = saved_map_closer(cfg, ex)
+    w.maybe_run_gba(w.on_keyframe(m, kf_id, covis_row=ex["covis_row"])[0])
+    torch.cuda.synchronize()
+
+    c = saved_map_closer(cfg, ex)
+    ck.reset_launch_counts()
+    with EventTimer(lc, "expand_sim3_matches") as t_expand, \
+            EventTimer(lc, "correct_loop") as t_correct, \
+            EventTimer(c, "on_keyframe") as t_on, \
+            EventTimer(c, "maybe_run_gba") as t_gba:
+        m2, closed = c.on_keyframe(m, kf_id, covis_row=ex["covis_row"])
+        m3 = c.maybe_run_gba(m2)
+    torch.cuda.synchronize()
+    launches = dict(ck.LAUNCHES)
+
+    check(closed, "the loop was not closed on the JAX package's map")
+    got = c.last_closure
+    cand, n_exp = int(exp["candidate"]), int(exp["n_inliers"])
+    check(got["candidate"] == cand and c.loop_edges[-1] == (kf_id, cand),
+          f"accepted candidate {got['candidate']}, JAX run {cand}")
+    check(abs(got["n_inliers"] - n_exp) <= max(3, 0.05 * n_exp),
+          f"{got['n_inliers']} expanded inliers, JAX run {n_exp}")
+    s_err = abs(float(got["s"]) - float(exp["s"]))
+    r_err = float(rot_err_deg(got["R"].cpu().numpy().astype(np.float64),
+                              exp["R"].astype(np.float64)))
+    t_err = float(np.abs(got["t"].cpu().numpy() - exp["t"]).max())
+    check(s_err <= 1e-3 and r_err <= 0.1 and t_err <= 1e-3,
+          f"Sim3 off: s {s_err}, R {r_err} deg, t {t_err}")
+    kfv = m.kf_valid.cpu().numpy()
+    c_exp = centres(exp["kf_pose_corrected"])[kfv]
+    extent = float(np.linalg.norm(c_exp - c_exp.mean(0), axis=1).max())
+    c_err = float(np.linalg.norm(
+        centres(m2.kf_pose.cpu().numpy())[kfv] - c_exp, axis=1).max())
+    g_err = float(np.linalg.norm(
+        centres(m3.kf_pose.cpu().numpy())[kfv]
+        - centres(exp["kf_pose_gba"])[kfv], axis=1).max())
+    ptv = exp["pt_valid_corrected"]
+    p_err = float(np.linalg.norm(m2.pt_pos.cpu().numpy()[ptv]
+                                 - exp["pt_pos_corrected"][ptv], axis=1).max())
+    check(c_err <= 1e-3 * extent,
+          f"corrected keyframe centres off by {c_err} (extent {extent})")
+    check(g_err <= 5e-3 * extent,
+          f"keyframe centres after the global BA off by {g_err}")
+    check(bool(np.array_equal(m2.pt_valid.cpu().numpy(), ptv)),
+          "pt_valid after the correction differs")
+    check(bool(torch.isfinite(m3.kf_pose).all())
+          and bool(torch.isfinite(m3.pt_pos).all()), "non-finite map")
+    check(len(t_expand.k2) >= 1 and all(k == 2 for k in t_expand.k2)
+          and launches["masked_match"] == sum(t_expand.k2),
+          f"K2 launches inside expand_sim3_matches {t_expand.k2}, in the "
+          f"call {launches['masked_match']}")
+    print(f"[loop a] JAX map at the closing call ({int(kfv.sum())} keyframes, "
+          f"{int(m.pt_valid.sum())} points, K={kfv.shape[0]} "
+          f"N={m.kf_uv.shape[1]} P={m.pt_pos.shape[0]}): keyframe {kf_id} "
+          f"closed against {got['candidate']} (JAX {cand}) with "
+          f"{got['n_inliers']} expanded inliers (JAX {n_exp}); Sim3 vs JAX: "
+          f"s {s_err:.2e}, R {r_err:.2e} deg, t {t_err:.2e}; keyframe centres "
+          f"after correct_loop {c_err:.2e}, after global_ba {g_err:.2e}, "
+          f"points after correct_loop {p_err:.2e} (map extent {extent:.3f})",
+          flush=True)
+    print(f"[loop a] on_keyframe that closes {t_on.ms()[0]:.2f} ms, of which "
+          f"correct_loop {t_correct.ms()[0]:.2f} ms; global_ba "
+          f"{t_gba.ms()[0]:.2f} ms (CUDA events); host readbacks in "
+          f"on_keyframe {c.n_host_syncs}; K2 launches in the closure "
+          f"{launches['masked_match']} | {card}", flush=True)
+    return launches
+
+
+def phase_loop_run(card: str):
+    """Halves (b) and (c): the loop sequence through `System.run_sequence`,
+    with and without loop closing; (b) resumes the JAX run's checkpoint of
+    frame LOOP_SPLIT - 1, (c) starts at the first frame."""
+    from coslam_tpu_torch.models import loop_closing as lc
+    from coslam_tpu_torch.models.system import System
+    from coslam_tpu_torch.ops import cuda_kernels as ck
+    from coslam_tpu_torch.utils import checkpoint, evaluation, synthetic
+
+    cfg = loop_config()
+    exp = np.load(os.path.join(ASSETS, "smoke_loop_expected.npz"))
+    resume_path = os.path.join(ASSETS, "smoke_loop_resume.npz")
+    with np.load(resume_path) as z:
+        resume = {k[6:]: z[k] for k in z.files if k.startswith("extra_traj")
+                  or k in ("extra_last_ref_kf", "extra_n_frames_tracked")}
+    draws = {int(f): d.astype(np.int64)
+             for f, d in zip(exp["draw_frames"], exp["draws"])}
+    scene = synthetic.make_cylinder_scene(700, seed=LOOP_SEED)
+    traj = synthetic.make_loop_trajectory(LOOP_FRAMES, seed=LOOP_SEED,
+                                          frac=1.25)
+    seq = synthetic.render_sequence(cfg.camera, traj, scene)
+    f_jax = int(exp["loop_kf_frame"])
+    ate_jax = float(exp["ate"])
+
+    def run(on: bool, resumed: bool):
+        """One run; with loop closing on, every LoopCloser call is timed."""
+        timers = {}
+        s = System(cfg, device="cuda", enable_loop_closing=on)
+        first = 0
+        if resumed:
+            checkpoint.load_system(resume_path, s)
+            s.trajectory = [(int(f), int(r), T) for f, r, T in zip(
+                resume["traj_frame"], resume["traj_ref_kf"],
+                resume["traj_T_rel"])]
+            s.last_ref_kf = int(resume["last_ref_kf"])
+            s.n_frames_tracked = int(resume["n_frames_tracked"])
+            first = LOOP_SPLIT
+        else:
+            s.init_draws = draws
+        torch.cuda.synchronize()
+        ck.reset_launch_counts()
+        with EventTimer(lc, "correct_loop") as timers["correct_loop"], \
+                EventTimer(lc, "global_ba") as timers["global_ba"]:
+            if on:
+                timers["on_keyframe"] = EventTimer(
+                    s.loop_closer, "on_keyframe").__enter__()
+            t0 = time.perf_counter()
+            s.run_sequence(seq[first:],
+                           frame_ids=list(range(first, LOOP_FRAMES)))
+            info = s.shutdown()             # runs a pending global BA
+            dt = time.perf_counter() - t0
+        ids, T = s.trajectory_poses()
+        ate = evaluation.ate_rmse(
+            evaluation.trajectory_xyz(T),
+            evaluation.trajectory_xyz(traj.poses_cw[np.asarray(ids)]))
+        lost = sum(1 for st in s.stats if st.get("lost"))
+        check(lost == 0 and s.state == "OK",
+              f"{lost} lost frames (loop closing {on}, resumed {resumed})")
+        check(bool(np.isfinite(T).all()), "non-finite poses")
+        check(list(ids[-(LOOP_FRAMES - max(first, int(ids[1]))):])
+              == list(range(max(first, int(ids[1])), LOOP_FRAMES)),
+              f"tracked frames {ids}")
+        return dict(s=s, info=info, fps=(LOOP_FRAMES - first) / dt, ids=ids,
+                    ate=ate, launches=dict(ck.LAUNCHES), timers=timers)
+
+    def closure_facts(r):
+        """What the loop closer did in a run, and the lines that say so."""
+        s, t_on = r["s"], r["timers"]["on_keyframe"]
+        closer = s.loop_closer
+        closed = [bool(out[1]) for out in t_on.results]
+        ms_on = t_on.ms()
+        # a call that examined candidates takes milliseconds; the cooldown
+        # and keyframes without a consistent candidate return at once
+        worked = [ms for ms, c in zip(ms_on, closed) if not c and ms > 1.0]
+        closing = [ms for ms, c in zip(ms_on, closed) if c]
+        kf_valid = s.map.kf_valid.cpu().numpy()
+        kf_frame_id = s.map.kf_frame_id.cpu().numpy()
+        apart = None
+        if closer.loop_edges:
+            kf_frames = np.sort(kf_frame_id[kf_valid])
+            f_port = int(kf_frame_id[closer.loop_edges[0][0]])
+            apart = abs(int(np.searchsorted(kf_frames, f_port))
+                        - int(np.searchsorted(kf_frames, f_jax)))
+
+        def mean(v):
+            return float(np.mean(v)) if len(v) else float("nan")
+
+        t_c, t_g = r["timers"]["correct_loop"], r["timers"]["global_ba"]
+        return dict(
+            closer=closer, apart=apart, kf_valid=kf_valid,
+            kf_frame_id=kf_frame_id,
+            k2_closing=[k for k, c in zip(t_on.k2, closed) if c],
+            what=f"loops closed {s.n_loops_closed} on frames "
+            f"{[st['frame'] for st in s.stats if st.get('loop_closed')]} "
+            f"(JAX {int(exp['n_loops_closed'])} on frame "
+            f"{int(exp['loop_frame'])}), edges {closer.loop_edges} with "
+            f"{closer.last_closure['n_inliers'] if closer.last_closure else 0}"
+            f" inliers (JAX ({int(exp['kf_id'])}, {int(exp['candidate'])}) "
+            f"with {int(exp['n_inliers'])}, keyframe of frame {f_jax}"
+            + (f": {apart} keyframes apart" if apart is not None else "")
+            + ")",
+            times=f"on_keyframe: {len(ms_on)} calls, {len(closing)} closing "
+            f"{mean(closing):.2f} ms, {len(worked)} that verified candidates "
+            f"without closing {mean(worked):.2f} ms (max "
+            f"{max(worked) if worked else 0:.2f}); correct_loop "
+            f"{mean(t_c.ms()):.2f} ms, global_ba {mean(t_g.ms()):.2f} ms "
+            f"(CUDA events); host readbacks "
+            f"{closer.n_host_syncs / max(len(ms_on), 1):.1f} per on_keyframe "
+            f"({closer.n_host_syncs} in the run); K2 launches per closure "
+            f"{[k for k, c in zip(t_on.k2, closed) if c]}")
+
+    # ---- (b) the revisit, resumed from the JAX run's checkpoint
+    off = run(False, True)
+    on = run(True, True)
+    f = closure_facts(on)
+    print(f"[loop b] the JAX run's checkpoint of frame {LOOP_SPLIT - 1} "
+          f"resumed, frames {LOOP_SPLIT}-{LOOP_FRAMES - 1} with loop closing "
+          f"on: lost 0, keyframes {int(f['kf_valid'].sum())}; {f['what']}; "
+          f"ATE over all {len(on['ids'])} poses {on['ate']:.5f} (JAX "
+          f"{ate_jax:.5f}; the same run without loop closing "
+          f"{off['ate']:.5f}); launches {on['launches']}", flush=True)
+    print(f"[loop b] {on['fps']:.2f} frames/s with loop closing, "
+          f"{off['fps']:.2f} without ({LOOP_FRAMES - LOOP_SPLIT} frames each, "
+          f"shutdown included); {f['times']} | {card}", flush=True)
+    check(on["s"].n_loops_closed >= 1 and on["info"]["loops_closed"] >= 1,
+          "no loop was closed")
+    check(f["apart"] <= 3, f"the loop was closed {f['apart']} keyframes from "
+          "the JAX run's closing keyframe")
+    check(all(k >= 2 for k in f["k2_closing"]),
+          f"K2 launches inside the closing on_keyframe {f['k2_closing']}")
+    check(f["closer"].pending_gba is None, "the global BA was left pending")
+    check(on["ate"] <= ate_jax + 0.01, f"ATE {on['ate']} vs JAX {ate_jax}")
+    check(on["ate"] < off["ate"],
+          f"ATE {on['ate']} with loop closing, {off['ate']} without")
+    check(all(v > 0 for v in on["launches"].values()),
+          f"launches {on['launches']}")
+
+    # ---- (c) from the first frame
+    off0 = run(False, False)
+    on0 = run(True, False)
+    f0 = closure_facts(on0)
+    # where no loop is closed, the revisit must have joined the old map by
+    # tracking: the first keyframe of the revisit shares landmarks with the
+    # loop's first keyframes, which takes them out of the detector's reach
+    s0 = on0["s"]
+    back = np.nonzero(f0["kf_valid"] & (f0["kf_frame_id"] >= f_jax))[0]
+    from coslam_tpu_torch.models import map_state as ms
+    shared = ms.covisibility_rows(
+        s0.map, torch.as_tensor(back[:3], device="cuda"))[:, :4] \
+        .max().item() if back.size else 0
+    print(f"[loop c] frames 0-{LOOP_FRAMES - 1} from the first frame, loop "
+          f"closing on: initialised at {int(on0['ids'][1])} (JAX "
+          f"{int(exp['init_frame'])}), {len(on0['ids'])} poses, lost 0, "
+          f"keyframes {int(f0['kf_valid'].sum())}; {f0['what']}; landmarks "
+          f"the revisit's first keyframes share with keyframes 0-3: up to "
+          f"{shared} (connected from {cfg.mapper.covis_edge_threshold}); ATE "
+          f"{on0['ate']:.5f} (JAX {ate_jax:.5f}; this run without loop "
+          f"closing {off0['ate']:.5f}); launches {on0['launches']}",
+          flush=True)
+    print(f"[loop c] {on0['fps']:.2f} frames/s with loop closing, "
+          f"{off0['fps']:.2f} without ({LOOP_FRAMES} frames each, shutdown "
+          f"included); {f0['times']} | {card}", flush=True)
+    if s0.n_loops_closed:
+        check(f0["apart"] <= 3, f"the loop was closed {f0['apart']} keyframes"
+              " from the JAX run's closing keyframe")
+    else:
+        check(shared >= cfg.mapper.covis_edge_threshold,
+              "no loop was closed and the revisit did not join the old map")
+    check(max(on0["ate"], off0["ate"]) <= ate_jax + LOOP_ATE_BAR,
+          f"ATE {on0['ate']} / {off0['ate']} vs JAX {ate_jax}")
+    check(all(v > 0 for v in on0["launches"].values()),
+          f"launches {on0['launches']}")
+    return on["launches"], on0["launches"]
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is False: this smoke run needs a GPU")
@@ -760,7 +1124,7 @@ def main() -> int:
 
     check("jax" not in sys.modules, "jax was imported")
     cfg = smoke_config()
-    phase_card()
+    card = phase_card()
     scene = synthetic.make_scene(600, seed=3)
     traj = synthetic.make_trajectory(360, seed=3)
     lo, hi = LOC_FRAMES
@@ -775,20 +1139,31 @@ def main() -> int:
     map_launches, _fps, slam, align = phase_mapping(
         mapping_seq, traj.poses_cw[:MAPPING_FRAMES])
     reloc_launches, n_reloc = phase_reloc(slam, align, mapping_seq)
+    del slam
+    loop_a = phase_loop_map(card)
+    loop_b, loop_c = phase_loop_run(card)
+    check(loop_a["masked_match"] > 0 and loop_b["masked_match"] > 0,
+          "K2 was not launched on the loop-closing path")
     check("jax" not in sys.modules, "jax was imported")
     n_loc = LOC_FRAMES[1] - LOC_FRAMES[0]
     for r in rows:
         r["launches"] = map_launches[r["name"]]
         r["launches_by_path"] = {"localization": loc_launches[r["name"]],
                                  "mapping": map_launches[r["name"]],
-                                 "relocalization": reloc_launches[r["name"]]}
+                                 "relocalization": reloc_launches[r["name"]],
+                                 "loop_closing": loop_c[r["name"]],
+                                 "loop_closing_resumed": loop_b[r["name"]],
+                                 "loop_closure_on_saved_map":
+                                     loop_a[r["name"]]}
         # per tracked frame of the localization slice, per input frame of
         # the mapping run (initialisation and backend inserts included) and
         # of the kidnap (grey frames and relocalization attempts included)
+        # and of the loop run (loop closing on)
         r["launches_per_frame"] = {
             "localization": loc_launches[r["name"]] / n_loc,
             "mapping": map_launches[r["name"]] / MAPPING_FRAMES,
-            "relocalization": reloc_launches[r["name"]] / n_reloc}
+            "relocalization": reloc_launches[r["name"]] / n_reloc,
+            "loop_closing": loop_c[r["name"]] / LOOP_FRAMES}
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -1,12 +1,15 @@
-"""Keyframe place-recognition database (port of coslam_tpu/models/
-keyframe_db.py: the constructor through `detect_reloc_candidates`).
+"""Keyframe place-recognition database + loop-candidate logic (port of
+coslam_tpu/models/keyframe_db.py).
 
 A dense (K, W) host matrix of BoW rows replaces the reference's inverted
 file (KeyFrameDatabase.cc:76-196); a query is one tf-idf-weighted L1 pass.
-The vocabulary lives on the System's device (`vocab`), the rows on the
-host as numpy, exactly as in the JAX package.  Still to port: online
-vocabulary retraining (ROADMAP Queue 1 item 11) and
-`detect_loop_candidates` (item 13).
+The vocabulary lives on the System's device (`vocab`), the rows and the
+loop detector's consistency groups on the host as numpy, exactly as in the
+JAX package.  The reference's acceptance policy is preserved: score above
+the minimum covisible score (DetectLoop, LoopClosing.cc:122-138), temporal
+separation, and covisibility consistency over >= 3 consecutive keyframes
+(LoopClosing.cc:43).  Still to port: online vocabulary retraining (ROADMAP
+Queue 1 item 11).
 """
 
 from __future__ import annotations
@@ -17,6 +20,7 @@ import numpy as np
 import torch
 
 from coslam_tpu_torch.config import SystemConfig
+from coslam_tpu_torch.models import map_state as ms
 from coslam_tpu_torch.ops import bow
 from coslam_tpu_torch.utils.device import DEFAULT_DEVICE, resolve_device
 
@@ -38,9 +42,12 @@ class KeyFrameDatabase:
         self.n_words = int(self.vocab.shape[0])
         self._external_vocab = vocab is not None
         self._n_added = 0
+        self.n_device_reads = 0    # device -> host readbacks made here
         K = cfg.mapper.max_keyframes
         self.bows = np.zeros((K, self.n_words), np.float32)  # raw tf, L1-normed
         self.has = np.zeros(K, bool)
+        # (groups (C, K) bool, chain lengths (C,)) of the previous insertion
+        self._consistent_groups = []
         # tf-idf weight cache, rebuilt only when rows change
         self._version = 0
         self._w_cache: Optional[Tuple[int, np.ndarray, np.ndarray]] = None
@@ -57,6 +64,7 @@ class KeyFrameDatabase:
     def compute_bow(self, desc: torch.Tensor,
                     valid: torch.Tensor) -> np.ndarray:
         words = bow.assign_words(desc, valid, self.vocab)
+        self.n_device_reads += 1
         return bow.bow_vector(words, valid, self.n_words).cpu().numpy()
 
     def add(self, kf_id: int, desc: torch.Tensor, valid: torch.Tensor):
@@ -91,13 +99,15 @@ class KeyFrameDatabase:
     # ------------------------------------------------------------------
     def remap(self, kf_map: np.ndarray, new_K: int):
         """Repack BoW rows after map compaction (models/compaction.py): row
-        i moves to kf_map[i]; culled rows are dropped."""
+        i moves to kf_map[i]; culled rows are dropped.  Consistency chains
+        reference old indices, so they restart."""
         bows = np.zeros((new_K, self.n_words), np.float32)
         has = np.zeros(new_K, bool)
         src = np.nonzero(kf_map >= 0)[0]
         bows[kf_map[src]] = self.bows[src]
         has[kf_map[src]] = self.has[src]
         self.bows, self.has = bows, has
+        self._consistent_groups = []
         self._version += 1
 
     def grow(self, new_K: int):
@@ -149,3 +159,55 @@ class KeyFrameDatabase:
         scores = np.where(self.has, self.scores_for_bow(q), -1.0)
         order = np.argsort(-scores)[:top_k]
         return [int(i) for i in order if scores[i] > 0]
+
+    # ------------------------------------------------------------------
+    def detect_loop_candidates(self, m: ms.MapState, kf_id: int,
+                               covis_row: np.ndarray) -> List[int]:
+        """Score-sorted, covisibility-consistent loop candidates for the
+        newly inserted keyframe (reference LoopClosing::DetectLoop).
+
+        Per-insertion cost is O(C*K): candidate covisibility groups come
+        from one device matmul over the candidate subset
+        (map_state.covisibility_rows) and the consistency chains are one
+        boolean matrix product against the previous insertion's groups."""
+        lcfg = self.cfg.loop
+        if not self.has[kf_id]:
+            return []
+        scores = self.scores_against_all(kf_id)
+
+        connected = covis_row >= self.cfg.mapper.covis_edge_threshold
+        covis_scores = scores[connected & self.has]
+        min_score = float(covis_scores.min()) if covis_scores.size else 0.1
+
+        K = len(self.has)
+        eligible = (self.has & ~connected
+                    & (np.arange(K) != kf_id)
+                    & (np.abs(np.arange(K) - kf_id)
+                       > lcfg.min_kfs_between_loops))
+        cand = np.nonzero(eligible & (scores >= max(min_score, 0.02)))[0]
+        if cand.size == 0:
+            self._consistent_groups = []
+            return []
+
+        self.n_device_reads += 1
+        rows = ms.covisibility_rows(
+            m, torch.as_tensor(cand, device=m.kf_valid.device)) \
+            .cpu().numpy()                                # (C, K)
+        groups = rows >= self.cfg.mapper.covis_edge_threshold
+        groups[np.arange(cand.size), cand] = True         # (C, K) bool
+        prev_groups, prev_counts = self._consistent_groups \
+            if self._consistent_groups else (np.zeros((0, K), bool),
+                                             np.zeros(0, np.int32))
+        if prev_groups.shape[1] != K:                     # capacity grew
+            pg = np.zeros((prev_groups.shape[0], K), bool)
+            pg[:, : prev_groups.shape[1]] = prev_groups[:, :K]
+            prev_groups = pg
+        # (C, G) overlap matrix -> per-candidate best chain length
+        overlap = groups @ prev_groups.T                  # bool matmul
+        best = np.where(overlap, prev_counts[None, :] + 1, 0).max(axis=1) \
+            if prev_groups.shape[0] else np.zeros(cand.size, np.int32)
+        self._consistent_groups = (groups, best.astype(np.int32))
+        ok = best + 1 >= lcfg.covis_consistency_th
+        chosen = cand[ok]
+        order = np.argsort(-scores[chosen])
+        return [int(c) for c in chosen[order]]

@@ -1,10 +1,12 @@
 """System facade + per-frame orchestration (port of coslam_tpu/models/
-system.py, monocular mapping).
+system.py, monocular SLAM).
 
 Ported: monocular SLAM from the first frame — initialisation
 (`_try_initialize` -> `_init_attempt` -> `_initial_map`), tracking, and the
 keyframe backend (`local_mapping.backend_insert`) with its BoW row into the
-`KeyFrameDatabase` — through `track_mono` and the chunked driver
+`KeyFrameDatabase` and loop closing on the new keyframe
+(`loop_closing.LoopCloser`: detection, Sim3 verification, loop correction,
+deferred global BA) — through `track_mono` and the chunked
 `run_sequence` (overlapped inserts chained on the device, synchronous batch
 inserts at capacity watermarks with compaction / growth); the LOST state
 with relocalization (`_attempt_relocalization`: place recognition -> EPnP
@@ -13,9 +15,8 @@ RANSAC -> recovery rounds, Tracking.cc:1343); localization mode
 (utils/checkpoint.py).
 
 Still to port, each raising NotImplementedError that names its ROADMAP
-Queue 1 item: loop closing (`enable_loop_closing=True`, item 13), stereo /
-RGB-D (item 14) and online vocabulary retraining without a pretrained
-vocabulary (item 11).
+Queue 1 item: stereo / RGB-D (item 14) and online vocabulary retraining
+without a pretrained vocabulary (item 11).
 
 RANSAC draws: the reference derives its initialisation key from the frame
 id (`fold_in(PRNGKey(0), frame_id)`) and its relocalization keys from the
@@ -23,7 +24,9 @@ count of frames seen and the candidate; here each attempt draws from a
 `torch.Generator` seeded with the same numbers, unless
 `init_draws[frame_id]` holds injected (iters, 8) sample indices, or
 `reloc_draws[(n_frames_tracked, candidate)]` injected (iters, 6) ones
-(parity tests inject the reference's draws there).
+(parity tests inject the reference's draws there).  The loop closer's Sim3
+draws are keyed by (keyframe, candidate) in the same way
+(`sim3_draws`, handed to `loop_closer.sim3_draws`).
 """
 
 from __future__ import annotations
@@ -38,6 +41,7 @@ from coslam_tpu_torch.config import SystemConfig
 from coslam_tpu_torch.models import compaction
 from coslam_tpu_torch.models import keyframe_db as kdb
 from coslam_tpu_torch.models import local_mapping as lm
+from coslam_tpu_torch.models import loop_closing as lc
 from coslam_tpu_torch.models import map_state as ms
 from coslam_tpu_torch.models import tracking
 from coslam_tpu_torch.models.frame import Frame, build_frame
@@ -150,15 +154,13 @@ class System:
     device="cpu"."""
 
     def __init__(self, cfg: SystemConfig, device=DEFAULT_DEVICE,
-                 enable_loop_closing: bool = False):
-        if enable_loop_closing:
-            raise NotImplementedError(
-                "loop closing is not ported yet (ROADMAP Queue 1 item 13); "
-                "construct the System with enable_loop_closing=False")
+                 enable_loop_closing: bool = True):
         self.cfg = cfg
         self.device = resolve_device(device)
         self.map = ms.empty_map(cfg, self.device)
         self.db = kdb.KeyFrameDatabase(cfg, device=self.device)
+        self.loop_closer = lc.LoopCloser(cfg, self.db) \
+            if enable_loop_closing else None
         self.n_loops_closed = 0
         self.state = "NOT_INITIALIZED"
         self.ref_frame: Optional[Frame] = None
@@ -188,6 +190,10 @@ class System:
         # (see module doc)
         self.init_draws: Dict[int, np.ndarray] = {}
         self.reloc_draws: Dict[Tuple[int, int], np.ndarray] = {}
+        # injected Sim3 draws per (keyframe, candidate): the loop closer's
+        self.sim3_draws: Dict[Tuple[int, int], np.ndarray] = \
+            self.loop_closer.sim3_draws if self.loop_closer is not None \
+            else {}
         self.n_relocalizations = 0
         # measured mapper model for mapper_latency_frames < 0 (AUTO)
         self._insert_cost_s: Optional[float] = None
@@ -419,10 +425,17 @@ class System:
             if self.state != "OK" or self._pf_cooldown > 0:
                 if self.state == "OK" and self._pf_cooldown > 0:
                     self._pf_cooldown -= 1
-                self._flush_pending()
+                # a deferred loop closure / global BA collected here moves
+                # every keyframe pose; the tracker's motion prior (last_T /
+                # velocity) is re-expressed in the corrected frame, as in
+                # the limit == 0 path below
+                kf_pose_snap = self.map.kf_pose
+                moved = self._flush_pending()
                 if carry is not None:
                     self._sync_host_from_carry(carry)
                     carry = None
+                if moved and self.last_ref_kf >= 0:
+                    self._reexpress_last_T(kf_pose_snap)
                 self.track_mono(images[i], fid(i), ts(i))
                 if self.state == "OK" and self.stats \
                         and self.stats[-1].get("inliers", 99) < 25:
@@ -434,6 +447,8 @@ class System:
             imgs = torch.stack([self._to_device(images[j]) for j in src])
             if carry is None:
                 carry = self._carry_from_host()
+            # the poses this chunk tracks against (a reference, no copy)
+            kf_pose_snap = self.map.kf_pose
             ml = (torch.tensor(self._mapper_latency, dtype=torch.int32,
                                device=self.device)
                   if self.cfg.tracker.mapper_latency_frames < 0 else None)
@@ -442,7 +457,7 @@ class System:
                                      not self.localization_only, carry,
                                      mapper_latency=ml)
             # the previous chunk's deferred keyframe bookkeeping
-            self._flush_pending()
+            map_moved = self._flush_pending()
             out = tracking.ChunkStep(*[t.cpu().numpy() for t in steps])
             oks = out.ok
             first_bad = int(np.argmin(oks)) if not oks.all() else C
@@ -457,6 +472,8 @@ class System:
                 self.n_frames_discarded += real
                 self._pf_cooldown = C
                 self._sync_host_from_carry(carry)
+                if map_moved and self.last_ref_kf >= 0:
+                    self._reexpress_last_T(kf_pose_snap)
                 self.track_mono(images[i], fid(i), ts(i))
                 i += 1
                 carry = None
@@ -489,6 +506,26 @@ class System:
             vis, found = ((carry2.pt_visible, carry2.pt_found)
                           if n_acc == C
                           else (vis_snap[last], found_snap[last]))
+
+            if map_moved:
+                # a deferred loop closure / global BA moved the map while
+                # this chunk was in flight: accept the frames (their anchors
+                # re-express automatically) but do not insert from stale
+                # state — the c2 condition persists, so the next chunk
+                # re-flags.  Rebuild the tracking state in the corrected
+                # frame.
+                ref = int(out.ref_kf[last])
+                self.map = self.map._replace(pt_visible=vis, pt_found=found)
+                self.last_T = (out.T_rel[last]
+                               @ self._kf_pose_np()[ref]).astype(np.float32)
+                self.velocity = None
+                self.last_kp_pt = kp_pts[last] if n_acc < C else carry2.kp_pt
+                self.last_level = frames.level[last] if n_acc < C \
+                    else carry2.level
+                self.last_ref_kf = ref
+                carry = None
+                i += n_acc
+                continue
 
             if j1 is not None and self._capacity_headroom_ok():
                 # overlapped insert: queue the backend, chain the carry on
@@ -559,6 +596,15 @@ class System:
         if carry is not None:
             self._sync_host_from_carry(carry)
 
+    def _reexpress_last_T(self, kf_pose_before: torch.Tensor):
+        """After a correction moved the keyframes: carry the tracker's pose
+        over through its reference keyframe and drop the velocity."""
+        r = self.last_ref_kf
+        self.last_T = (self.last_T
+                       @ np.linalg.inv(kf_pose_before[r].cpu().numpy())
+                       @ self._kf_pose_np()[r]).astype(np.float32)
+        self.velocity = None
+
     def _capacity_headroom_ok(self) -> bool:
         """True when the overlapped insert cannot need compaction or
         growth (which remap slot ids and must synchronize)."""
@@ -596,13 +642,31 @@ class System:
         self.map = self.map._replace(pt_visible=carry.pt_visible,
                                      pt_found=carry.pt_found)
 
-    def _flush_pending(self) -> None:
+    def _close_loops(self, m: ms.MapState, kf_i: int, covis_row):
+        """The loop closer's turn on keyframe `kf_i`: a global BA deferred
+        from an earlier closure (unless a newer loop supersedes it, the
+        reference's abort-on-new-loop semantics, LoopClosing.cc:579), then
+        detection / verification / correction.  Returns (map, moved)."""
+        m2 = self.loop_closer.maybe_run_gba(m)
+        moved = m2 is not m
+        m2, closed = self.loop_closer.on_keyframe(m2, kf_i,
+                                                  covis_row=covis_row)
+        if closed:
+            moved = True
+            self.n_loops_closed += 1
+            m2 = lm.refresh_point_geometry(self.cfg, m2)
+            if self.stats:
+                self.stats[-1]["loop_closed"] = True
+        return m2, moved
+
+    def _flush_pending(self) -> bool:
         """Collect the deferred bookkeeping of overlapped inserts: BoW rows
-        into the place-recognition DB and the exact point count.  (The
-        reference also runs loop closing here and reports whether it moved
-        the map; that waits for ROADMAP Queue 1 item 13.)"""
+        into the place-recognition DB, the exact point count, the deferred
+        global BA and loop closing on the newest keyframe.  Returns True if
+        the map's poses moved (loop closure / global BA), which invalidates
+        any chunk carry in flight."""
         if not self._pending_kf:
-            return
+            return False
         pend = self._pending_kf
         self._pending_kf = []
         rows = torch.stack([a["bow_row"] for _, a, _t in pend]).cpu().numpy()
@@ -613,6 +677,14 @@ class System:
             self.db.add_row(kf_i, bow_row)
         self._host_n_pt = n_pt
         self.db.maybe_retrain(self.map)
+        moved = False
+        if self.loop_closer is not None:
+            covis_row = pend[-1][1]["covis_row"].cpu().numpy()
+            self.map, moved = self._close_loops(self.map, pend[-1][0],
+                                                covis_row)
+        if moved:
+            self._kf_pose_dirty = True
+        return moved
 
     def _insert_keyframes_batch(self, jobs, frames, kp_pts, out) -> int:
         """Insert a chunk's flagged keyframes synchronously, after making
@@ -652,6 +724,9 @@ class System:
                        @ T_post).astype(np.float32)
         self._kf_pose_dirty = True
         self.db.maybe_retrain(self.map)
+        if self.loop_closer is not None:
+            covis_row = pend[-1][1]["covis_row"].cpu().numpy()
+            self.map, _ = self._close_loops(self.map, pend[-1][0], covis_row)
         return pend[-1][0]
 
     # ------------------------------------------------------------------
@@ -737,15 +812,21 @@ class System:
         self.last_ref_kf = remap_kf(self.last_ref_kf) \
             if self.last_ref_kf >= 0 else -1
         self.db.remap(kf_map, new_K=kf_map.shape[0])
+        if self.loop_closer is not None:
+            self.loop_closer.remap(kf_map, remap_kf)
 
     def _set_cfg(self, cfg2: SystemConfig):
         self.cfg = cfg2
         self.db.cfg = cfg2
         self.db.grow(cfg2.mapper.max_keyframes)
+        if self.loop_closer is not None:
+            self.loop_closer.cfg = cfg2
 
     def _insert_keyframe(self, frame: Frame, frame_id: int) -> int:
         """Per-frame keyframe insert: make room, run the backend, store the
-        BoW row.  Uses self.last_kp_pt, which `_ensure_capacity` remaps if
+        BoW row, then place recognition and loop closing (the reference's
+        LoopClosing thread; here a synchronous stage after local mapping).
+        Uses self.last_kp_pt, which `_ensure_capacity` remaps if
         it compacted the map."""
         self._ensure_capacity()
         m, k, aux = lm.backend_insert(
@@ -762,6 +843,12 @@ class System:
         self._host_n_pt = int(n_pt)
         self.db.add_row(kf_i, bow_row)
         self.db.maybe_retrain(m)
+        if self.loop_closer is not None:
+            m, pose_moved = self._close_loops(
+                m, kf_i, aux["covis_row"].cpu().numpy())
+            if pose_moved:
+                # tracking references the corrected new-keyframe pose
+                pose = m.kf_pose[kf_i].cpu().numpy()
         self.map = m
         self._kf_pose_dirty = True
         self.last_T = pose
@@ -793,6 +880,9 @@ class System:
         self._host_n_pt = 0
         self._pending_kf = []
         self.db = kdb.KeyFrameDatabase(self.cfg, device=self.device)
+        if self.loop_closer is not None:
+            self.loop_closer = lc.LoopCloser(self.cfg, self.db)
+            self.loop_closer.sim3_draws = self.sim3_draws
         self.state = "NOT_INITIALIZED"
         self.ref_frame = None
         self.ref_frame_id = -1
@@ -824,6 +914,10 @@ class System:
         """Finish all queued work and report run statistics (reference
         System::Shutdown, System.h:97)."""
         self._flush_pending()
+        if self.loop_closer is not None:
+            # flush a deferred global BA so the exported map is consistent
+            self.map = self.loop_closer.maybe_run_gba(self.map)
+            self._kf_pose_dirty = True
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
         n_kf = int(self.map.kf_valid.sum())

@@ -1,18 +1,24 @@
-"""Bundle adjustment: Schur-complement Levenberg-Marquardt with the reduced
-camera system solved directly (port of coslam_tpu/optim/ba.py:
-`BAProblem`, `BAResult`, `solve_dense`, `solve_dense_compact` and their
-helpers).
+"""Bundle adjustment: Schur-complement Levenberg-Marquardt (port of
+coslam_tpu/optim/ba.py, whole).
 
 Residuals and Jacobians are batched over observations; the 3x3 point
-blocks are inverted in closed form; the (6K, 6K) Schur complement
-S = Hcc - Y Hpp^-1 Y^T is assembled from the dense (K, P, 6, 3) camera-point
-block and solved by Cholesky (`torch.linalg`, as the reference solves it
-outside any Pallas kernel).  LM accept/reject is by total robust cost,
-`where`-masked, so a solve never reads a value back to the host.
+blocks are inverted in closed form.  Two solvers of the reduced camera
+system S = Hcc - Y Hpp^-1 Y^T:
 
-Gauge: `kf_fixed` keyframes contribute measurements but receive no update.
-The matrix-free PCG solver (`solve`, `solve_body`) waits for global and
-sharded BA (ROADMAP Queue 1 items 13 and 16).
+  * `solve_dense` / `solve_dense_compact` (windowed local BA) assemble the
+    (6K, 6K) matrix from the dense (K, P, 6, 3) camera-point block and solve
+    it by Cholesky (`torch.linalg`, as the reference solves it outside any
+    Pallas kernel);
+  * `solve` / `solve_body` (global BA) never materialize it: PCG runs on it
+    matrix-free, each matvec being two observation-indexed segment sums
+    (`index_add_`), with a block-Jacobi (6x6) preconditioner.  On the GPU the
+    order of those sums is not fixed, so two runs agree to float rounding.
+
+LM accept/reject is by total robust cost, `where`-masked, so a solve never
+reads a value back to the host.  Gauge: `kf_fixed` keyframes contribute
+measurements but receive no update.  `solve_body`'s `axis_name` (the
+observation-sharded solve over a device mesh) waits for the distributed
+slice (ROADMAP Queue 1 item 16).
 """
 
 from __future__ import annotations
@@ -111,6 +117,14 @@ def _seg_sum(x, idx, n: int):
     """Segment sum of x over the (O,) index idx into n rows."""
     out = torch.zeros((n,) + x.shape[1:], dtype=x.dtype, device=x.device)
     return out.index_add(0, idx.long(), x)
+
+
+def solve(cam: CameraConfig, prob: BAProblem, iters: int = 10,
+          pcg_iters: int = 40, chi2_th: float = 5.991,
+          robust: bool = True) -> BAResult:
+    """Run `iters` LM steps with the matrix-free PCG solver.  Cost of one
+    step is O(observations) + PCG matvecs."""
+    return solve_body(cam, prob, iters, pcg_iters, chi2_th, robust, None)
 
 
 def solve_dense(cam: CameraConfig, prob: BAProblem, iters: int = 10,
@@ -237,3 +251,119 @@ def solve_dense_compact(cam: CameraConfig, prob: BAProblem, p_local: int,
     points[torch.where(live, slot_pt, P)] = torch.where(
         live[:, None], res.points, 0.0)
     return res._replace(points=points[:P])
+
+
+def solve_body(cam: CameraConfig, prob: BAProblem, iters: int,
+               pcg_iters: int, chi2_th: float, robust: bool,
+               axis_name) -> BAResult:
+    """Matrix-free solver body.  Every cross-observation reduction goes
+    through `_seg_sum`; with `axis_name` the reference all-reduces them
+    over a mesh axis (observations sharded, poses / points replicated) —
+    that branch belongs to the distributed slice."""
+    if axis_name is not None:
+        raise NotImplementedError(
+            "the observation-sharded BA (solve_body with axis_name) is not "
+            "ported yet (ROADMAP Queue 1 item 16); pass axis_name=None")
+    K = prob.poses.shape[0]
+    P = prob.points.shape[0]
+    dev = prob.points.device
+    delta2 = chi2_th
+    free = ~prob.kf_fixed                      # (K,)
+    free_c = free[:, None]
+    obs_kf = prob.obs_kf.long()
+    obs_pt = prob.obs_pt.long()
+    eye6 = torch.eye(6, dtype=torch.float32, device=dev)
+
+    def total_cost(poses, points):
+        r, _, _, behind = _proj_residuals(cam, poses, points, prob)
+        chi2 = (r * r).sum(1) * prob.obs_w
+        ok = prob.obs_valid & ~behind
+        return torch.where(ok, _robust_cost(chi2, delta2, robust), 0.0).sum()
+
+    poses, points = prob.poses, prob.points
+    lam = torch.full((), 1e-4, dtype=torch.float32, device=dev)
+    for _ in range(iters):
+        r, Jc, Jp, behind = _proj_residuals(cam, poses, points, prob)
+        chi2 = (r * r).sum(1) * prob.obs_w
+        ok = prob.obs_valid & ~behind
+        w = torch.where(ok, prob.obs_w * _robust_weight(chi2, delta2, robust),
+                        0.0)
+        Jcw = Jc * w[:, None, None]
+        Jpw = Jp * w[:, None, None]
+        # diagonal blocks
+        Hcc = _seg_sum(torch.einsum("oij,oik->ojk", Jcw, Jc), obs_kf, K)
+        Hpp = _seg_sum(torch.einsum("oij,oik->ojk", Jpw, Jp), obs_pt, P)
+        bc = _seg_sum(torch.einsum("oij,oi->oj", Jcw, r), obs_kf, K)
+        bp = _seg_sum(torch.einsum("oij,oi->oj", Jpw, r), obs_pt, P)
+
+        lamc = lam * torch.clamp(torch.diagonal(Hcc, dim1=1, dim2=2), min=1e-6)
+        lamp = lam * torch.clamp(torch.diagonal(Hpp, dim1=1, dim2=2), min=1e-6)
+        Hpp_inv = _inv3(Hpp + torch.diag_embed(lamp))              # (P, 3, 3)
+
+        def Yt_x(x):
+            """Y^T x aggregated per point: (K, 6) -> (P, 3)."""
+            u = torch.einsum("oij,oj->oi", Jc, x[obs_kf])          # (O, 2)
+            return _seg_sum(torch.einsum("oij,oi->oj", Jpw, u), obs_pt, P)
+
+        def Y_y(y):
+            """Y y aggregated per camera: (P, 3) -> (K, 6)."""
+            v = torch.einsum("oij,oj->oi", Jp, y[obs_pt])          # (O, 2)
+            return _seg_sum(torch.einsum("oij,oi->oj", Jcw, v), obs_kf, K)
+
+        def S_mv(x):
+            x = torch.where(free_c, x, 0.0)
+            u = torch.einsum("oij,oj->oi", Jc, x[obs_kf])
+            hcc_x = _seg_sum(torch.einsum("oij,oi->oj", Jcw, u), obs_kf, K) \
+                + lamc * x
+            sx = hcc_x - Y_y(torch.einsum("pij,pj->pi", Hpp_inv, Yt_x(x)))
+            return torch.where(free_c, sx, 0.0)
+
+        # reduced gradient: g = -bc + Y Hpp^-1 bp  (solving S dc = g)
+        g = -bc + Y_y(torch.einsum("pij,pj->pi", Hpp_inv, bp))
+        g = torch.where(free_c, g, 0.0)
+
+        # block-Jacobi preconditioner on Hcc + damping
+        Mc_inv = torch.linalg.inv_ex(
+            Hcc + torch.diag_embed(lamc) + 1e-8 * eye6)[0]
+        Mc_inv = torch.where(free[:, None, None], Mc_inv, eye6[None])
+
+        def precond(v):
+            return torch.einsum("kij,kj->ki", Mc_inv, v)
+
+        x = torch.zeros_like(g)
+        rr = g
+        z = precond(rr)
+        pdir = z
+        rz = (rr * z).sum()
+        for _ in range(pcg_iters):
+            Ap = S_mv(pdir)
+            alpha = rz / ((pdir * Ap).sum() + 1e-20)
+            x = x + alpha * pdir
+            rr = rr - alpha * Ap
+            z = precond(rr)
+            rz_new = (rr * z).sum()
+            beta = rz_new / (rz + 1e-20)
+            pdir = z + beta * pdir
+            rz = rz_new
+        dc = torch.where(free_c, x, 0.0)
+
+        # back-substitute points: dp = Hpp^-1 (-bp - Y^T dc)
+        dp = torch.einsum("pij,pj->pi", Hpp_inv, -bp - Yt_x(dc))
+
+        poses_new = geo.exp_se3(dc) @ poses
+        points_new = points + dp
+        cost_old = total_cost(poses, points)
+        cost_new = total_cost(poses_new, points_new)
+        accept = cost_new < cost_old
+        poses = torch.where(accept, poses_new, poses)
+        points = torch.where(accept, points_new, points)
+        lam = torch.clamp(torch.where(accept, lam * 0.4, lam * 5.0),
+                          1e-8, 1e4)
+
+    r, _, _, behind = _proj_residuals(cam, poses, points, prob)
+    chi2 = (r * r).sum(1) * prob.obs_w
+    inlier = prob.obs_valid & ~behind & (chi2 < chi2_th)
+    # project rotations back to SO(3): exp-update composition drift would
+    # otherwise compound through downstream pose algebra (geo.project_so3)
+    return BAResult(poses=geo.project_se3(poses), points=points,
+                    obs_inlier=inlier, cost=total_cost(poses, points))

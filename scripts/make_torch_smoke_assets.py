@@ -22,7 +22,22 @@ Runs the JAX package (`coslam_tpu`) on the CPU:
      inlier count and pose, the frame the run recovered on with the
      accepted candidate keyframe, and per relocalization attempt the frame
      count, the place-recognition candidates and the EPnP draws
-     `ransac_pnp` made for each.
+     `ransac_pnp` made for each;
+  5. runs the loop workload (640x480, 1000 features, K=96, P=16384,
+     make_cylinder_scene(700, seed=5), make_loop_trajectory(115, seed=5,
+     frac=1.25): 1.25 laps round a cylinder, default LoopConfig, keyframe
+     throttle 3) with loop closing on, and writes `smoke_loop_map.npz` —
+     the map as it was handed to the `LoopCloser.on_keyframe` call that
+     closed the loop, in the checkpoint layout, plus the database's BoW rows
+     and consistency groups, the closer's `last_loop_kf` / `loop_edges` and
+     the Sim3 draws of every candidate that call verified —,
+     `smoke_loop_resume.npz` — the System's checkpoint after frame 69, before
+     the revisit, with its trajectory log (the run is two `run_sequence`
+     calls, split there) — and `smoke_loop_expected.npz`: the accepted
+     candidate, the expanded inlier count, s / R / t, keyframe poses and
+     point positions after `correct_loop` and after `global_ba` on its
+     result, and of the whole run the initialisation draws, the frame and keyframe that closed, the
+     per-frame poses and the ATE.
 
 The workload is the bench's (bench.py:140-160: 640x480, 1000 features,
 max_keypoints=1024, make_scene(600, seed=3), make_trajectory(360, seed=3))
@@ -31,14 +46,16 @@ depend on host speed; the localization map uses the default capacity
 (K=256, P=32768), the mapping run the bench's (K=64, P=16384).
 
     JAX_PLATFORMS=cpu python scripts/make_torch_smoke_assets.py \
-        [--mapping-only | --reloc-only]
+        [--mapping-only | --reloc-only | --loop-only]
 
 --mapping-only rebuilds steps 3 and 4, --reloc-only step 4 alone (it still
-runs step 3's mapping, without writing its file).
+runs step 3's mapping, without writing its file), --loop-only step 5 alone
+(~4 min).
 """
 
 from __future__ import annotations
 
+import collections
 import os
 import sys
 import time
@@ -53,6 +70,7 @@ import jax.numpy as jnp  # noqa: E402
 
 from coslam_tpu.config import (CameraConfig, ExtractorConfig,  # noqa: E402
                                MapperConfig, SystemConfig, TrackerConfig)
+from coslam_tpu.models import loop_closing as jlc  # noqa: E402
 from coslam_tpu.models import system as jsystem  # noqa: E402
 from coslam_tpu.ops import matching as jmatching  # noqa: E402
 from coslam_tpu.models.system import System  # noqa: E402
@@ -63,6 +81,9 @@ LOC_FRAMES = (80, 120)
 MAPPING_FRAMES = 120
 RELOC_BLANK = 3                    # grey frames, ids 1000 ..
 RELOC_RETURN = tuple(range(28, 34))   # then these frames again, ids 2000 + i
+LOOP_FRAMES = 115                  # 1.25 laps: the revisit begins at frame 92
+LOOP_SEED = 5
+LOOP_SPLIT = 70                    # the resume checkpoint is taken here
 ASSETS = os.path.join(ROOT, "coslam_tpu_torch", "assets")
 
 
@@ -77,6 +98,10 @@ def smoke_config(mapper: MapperConfig = MapperConfig()) -> SystemConfig:
 
 def mapping_config() -> SystemConfig:
     return smoke_config(MapperConfig(max_keyframes=64, max_points=16384))
+
+
+def loop_config() -> SystemConfig:
+    return smoke_config(MapperConfig(max_keyframes=96, max_points=16384))
 
 
 class DrawRecordingSystem(System):
@@ -283,21 +308,177 @@ def mapping_reference(seq, poses, write: bool = True) -> DrawRecordingSystem:
     return s
 
 
+class RecordingLoopCloser(jlc.LoopCloser):
+    """The reference LoopCloser, keeping what the closing `on_keyframe`
+    call was given and what it computed.  `sim3_between` and `correct_loop`
+    are looked up in the module at call time, so wrapping them there
+    records the Sim3 draws (`jax.random.choice` with the key and
+    probabilities `ransac_sim3` uses) and the accepted similarity.
+    `recent` holds the inputs of the last four calls, with the candidates
+    the database's loop detector returned (the parity tests replay them)."""
+
+    def __init__(self, cfg, db):
+        super().__init__(cfg, db)
+        self.closing = None
+        self.recent = collections.deque(maxlen=4)
+        self._draws = {}
+        self._accepted = None
+
+    def on_keyframe(self, m, kf_id, covis_row=None):
+        groups = self.db._consistent_groups
+        before = dict(
+            map=m, kf_id=kf_id, covis_row=np.asarray(covis_row),
+            cg_groups=np.asarray(groups[0]) if groups
+            else np.zeros((0, len(self.db.has)), bool),
+            cg_counts=np.asarray(groups[1]) if groups
+            else np.zeros(0, np.int32),
+            last_loop_kf=self.last_loop_kf,
+            loop_edges=np.asarray(self.loop_edges, np.int32).reshape(-1, 2),
+            db_bows=self.db.bows.copy(), db_has=self.db.has.copy())
+        self._draws, self._accepted = {}, None
+        real_between, real_correct = jlc.sim3_between, jlc.correct_loop
+        real_detect = self.db.detect_loop_candidates
+
+        def detect(mm, k, row):
+            before["bow_cands"] = real_detect(mm, k, row)
+            return before["bow_cands"]
+
+        def between(cfg, mm, k1, k2, idx2, pt1, pt2, ok, key):
+            p = ok.astype(jnp.float32)
+            p = p / (p.sum() + 1e-9)
+            self._draws[(int(k1), int(k2))] = np.asarray(jax.random.choice(
+                key, ok.shape[0], shape=(cfg.loop.sim3_ransac_iters, 3),
+                replace=True, p=p), np.int16)
+            return real_between(cfg, mm, k1, k2, idx2, pt1, pt2, ok, key)
+
+        def correct(cfg, mm, kf_cur, kf_loop, s21, R21, t21, pt1, pt2,
+                    pair_ok, **kw):
+            out = real_correct(cfg, mm, kf_cur, kf_loop, s21, R21, t21, pt1,
+                               pt2, pair_ok, **kw)
+            self._accepted = dict(
+                candidate=int(kf_loop), n_inliers=int(pair_ok.sum()),
+                s=np.asarray(s21), R=np.asarray(R21), t=np.asarray(t21),
+                corrected=out)
+            return out
+
+        jlc.sim3_between, jlc.correct_loop = between, correct
+        self.db.detect_loop_candidates = detect
+        try:
+            m2, closed = super().on_keyframe(m, kf_id, covis_row=covis_row)
+        finally:
+            jlc.sim3_between, jlc.correct_loop = real_between, real_correct
+            del self.db.detect_loop_candidates
+        if self.closing is None:
+            self.recent.append(before)
+        if closed and self.closing is None:
+            self.closing = dict(before, draws=dict(self._draws),
+                                **self._accepted)
+        return m2, closed
+
+
+def loop_reference() -> None:
+    """The loop workload with loop closing on (step 5)."""
+    t0 = time.perf_counter()
+    cfg = loop_config()
+    scene = synthetic.make_cylinder_scene(700, seed=LOOP_SEED)
+    traj = synthetic.make_loop_trajectory(LOOP_FRAMES, seed=LOOP_SEED,
+                                          frac=1.25)
+    seq = synthetic.render_sequence(cfg.camera, traj, scene)
+    s = DrawRecordingSystem(cfg, enable_loop_closing=True)
+    s.loop_closer = RecordingLoopCloser(cfg, s.db)
+    s.run_sequence(seq[:LOOP_SPLIT])
+    assert s.state == "OK" and s.n_loops_closed == 0
+    resume_path = os.path.join(ASSETS, "smoke_loop_resume.npz")
+    checkpoint.save_system(resume_path, s)
+    with np.load(resume_path) as z:
+        saved = {k: z[k] for k in z.files}
+    np.savez_compressed(
+        resume_path, **saved,
+        extra_traj_frame=np.asarray([f for f, _, _ in s.trajectory], np.int32),
+        extra_traj_ref_kf=np.asarray([r for _, r, _ in s.trajectory],
+                                     np.int32),
+        extra_traj_T_rel=np.stack([np.asarray(t, np.float32)
+                                   for _, _, t in s.trajectory]),
+        extra_last_ref_kf=np.int32(s.last_ref_kf),
+        extra_n_frames_tracked=np.int32(s.n_frames_tracked))
+    s.run_sequence(seq[LOOP_SPLIT:],
+                   frame_ids=list(range(LOOP_SPLIT, LOOP_FRAMES)))
+    s.shutdown()
+    c = s.loop_closer.closing
+    assert s.n_loops_closed >= 1 and c is not None, "no loop was closed"
+    assert s.state == "OK"
+    ids, T = s.trajectory_poses()
+    lost = sum(1 for st in s.stats if st.get("lost"))
+    assert lost == 0, f"the reference loop run lost {lost} frames"
+    gt = traj.poses_cw[np.asarray(ids)]
+    ate = evaluation.ate_rmse(evaluation.trajectory_xyz(T),
+                              evaluation.trajectory_xyz(gt))
+    init_frame = int(ids[1])
+    later_draws(s, seq, int(ids[0]), range(init_frame + 1, init_frame + 6))
+    attempts = sorted(s.draws)
+    loop_frames = [st["frame"] for st in s.stats if st.get("loop_closed")]
+
+    m0 = c["map"]
+    pairs = sorted(c["draws"])
+    checkpoint.save_map(
+        os.path.join(ASSETS, "smoke_loop_map.npz"), m0, extra=dict(
+            db_bows=c["db_bows"], db_has=c["db_has"],
+            db_vocab=np.asarray(s.db.vocab), kf_id=np.int32(c["kf_id"]),
+            covis_row=c["covis_row"], cg_groups=c["cg_groups"],
+            cg_counts=c["cg_counts"], last_loop_kf=np.int64(c["last_loop_kf"]),
+            loop_edges=c["loop_edges"],
+            sim3_draw_pairs=np.asarray(pairs, np.int32).reshape(-1, 2),
+            sim3_draws=np.stack([c["draws"][p] for p in pairs])))
+    mc = c["corrected"]
+    mg = jlc.global_ba(cfg, mc)
+    kf_valid = np.asarray(m0.kf_valid)
+    print(f"loop frames 0-{LOOP_FRAMES - 1}: initialised at frame "
+          f"{init_frame}, loop closed on frame {loop_frames} by keyframe "
+          f"{c['kf_id']} (frame {int(np.asarray(m0.kf_frame_id)[c['kf_id']])})"
+          f" against keyframe {c['candidate']} with {c['n_inliers']} inliers,"
+          f" scale {float(c['s']):.4f}; {int(kf_valid.sum())} keyframes at "
+          f"the closure, {s.n_loops_closed} loops, ATE {ate:.5f} "
+          f"({time.perf_counter() - t0:.1f} s)")
+    np.savez_compressed(
+        os.path.join(ASSETS, "smoke_loop_expected.npz"),
+        kf_id=np.int32(c["kf_id"]), candidate=np.int32(c["candidate"]),
+        n_inliers=np.int32(c["n_inliers"]),
+        s=c["s"], R=c["R"], t=c["t"],
+        kf_pose_corrected=np.asarray(mc.kf_pose),
+        pt_pos_corrected=np.asarray(mc.pt_pos),
+        pt_valid_corrected=np.asarray(mc.pt_valid),
+        kf_pose_gba=np.asarray(mg.kf_pose), pt_pos_gba=np.asarray(mg.pt_pos),
+        draw_frames=np.asarray(attempts, np.int32),
+        draws=np.stack([s.draws[f] for f in attempts]).astype(np.int16),
+        init_frame=np.int32(init_frame),
+        loop_frame=np.int32(loop_frames[0]),
+        loop_kf_frame=np.asarray(m0.kf_frame_id)[c["kf_id"]],
+        n_loops_closed=np.int32(s.n_loops_closed),
+        frame_ids=np.asarray(ids, np.int32), T=T.astype(np.float32),
+        gt_T=gt.astype(np.float32), ate=np.float64(ate))
+
+
 def main() -> int:
-    cfg = smoke_config()
-    scene = synthetic.make_scene(600, seed=3)
-    traj = synthetic.make_trajectory(360, seed=3)
-    poses = traj.poses_cw[:MAPPING_FRAMES]
-    seq = synthetic.render_sequence(cfg.camera,
-                                    synthetic.Trajectory(poses), scene)
     os.makedirs(ASSETS, exist_ok=True)
     reloc_only = "--reloc-only" in sys.argv
-    if "--mapping-only" not in sys.argv and not reloc_only:
-        map_and_localize(seq, poses)
-    reloc_reference(mapping_reference(seq, poses, write=not reloc_only),
-                    seq, poses)
+    loop_only = "--loop-only" in sys.argv
+    if not loop_only:
+        cfg = smoke_config()
+        scene = synthetic.make_scene(600, seed=3)
+        traj = synthetic.make_trajectory(360, seed=3)
+        poses = traj.poses_cw[:MAPPING_FRAMES]
+        seq = synthetic.render_sequence(cfg.camera,
+                                        synthetic.Trajectory(poses), scene)
+        if "--mapping-only" not in sys.argv and not reloc_only:
+            map_and_localize(seq, poses)
+        reloc_reference(mapping_reference(seq, poses, write=not reloc_only),
+                        seq, poses)
+    if loop_only or len(sys.argv) == 1:
+        loop_reference()
     for name in ("smoke_map.npz", "smoke_expected.npz",
-                 "smoke_mapping_expected.npz", "smoke_reloc_expected.npz"):
+                 "smoke_mapping_expected.npz", "smoke_reloc_expected.npz",
+                 "smoke_loop_map.npz", "smoke_loop_resume.npz",
+                 "smoke_loop_expected.npz"):
         p = os.path.join(ASSETS, name)
         print(f"{p}: {os.path.getsize(p)} bytes")
     return 0

@@ -7,7 +7,15 @@ chip_smoke.py mapping run (frames 0-119 from the first frame, K=64 /
 P=16384, the JAX run's initialisation draws injected), plus a split of the
 wall time into initialisation attempts, backend inserts and the rest
 (synchronised host clock around each stage) and the Python lines where the
-run blocks on the device (CUDA sync debug mode).
+run blocks on the device (CUDA sync debug mode).  With --loop: the
+chip_smoke.py loop run (115 frames round the cylinder scene from the first
+frame, K=96 / P=16384, loop closing on), plus a split of the wall time into
+the loop closer's stages (`on_keyframe` with `correct_loop` inside it,
+`global_ba`; synchronised host clock around each) and a profile of the
+closing call alone on the saved map (smoke_loop_map.npz): device busy
+against the call's wall time, i.e. how much of a closure is host dispatch,
+and its kernel count.  The whole loop run is not put under the profiler: its
+million kernel events take the profiler longer than a quarter of an hour.
 
 Each path runs once to warm up, once unprofiled, then once under
 torch.profiler, and the script prints:
@@ -19,7 +27,7 @@ torch.profiler, and the script prints:
   * the count of host-side sync points the profiler saw (stream
     synchronizations, memcpys, .item() calls).
 
-    python3 scripts/profile_torch_slice.py [--mapping]
+    python3 scripts/profile_torch_slice.py [--mapping | --loop]
 """
 
 from __future__ import annotations
@@ -36,8 +44,9 @@ import torch
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 sys.path.insert(0, ROOT)
 
-from chip_smoke import (ASSETS, LOC_FRAMES, MAPPING_FRAMES,  # noqa: E402
-                        mapping_config, smoke_config)
+from chip_smoke import (ASSETS, LOC_FRAMES, LOOP_FRAMES,  # noqa: E402
+                        LOOP_SEED, MAPPING_FRAMES, loop_config,
+                        mapping_config, saved_map_closer, smoke_config)
 
 
 def mapping_runner(scene, traj):
@@ -110,6 +119,102 @@ def mapping_runner(scene, traj):
     return run, split, MAPPING_FRAMES
 
 
+def loop_runner():
+    """run() for the loop path, and the split of a closure's time."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from coslam_tpu_torch.models import loop_closing as lc
+    from coslam_tpu_torch.models.system import System
+    from coslam_tpu_torch.utils import checkpoint, synthetic
+
+    cfg = loop_config()
+    exp = np.load(os.path.join(ASSETS, "smoke_loop_expected.npz"))
+    draws = {int(f): d.astype(np.int64)
+             for f, d in zip(exp["draw_frames"], exp["draws"])}
+    scene = synthetic.make_cylinder_scene(700, seed=LOOP_SEED)
+    traj = synthetic.make_loop_trajectory(LOOP_FRAMES, seed=LOOP_SEED,
+                                          frac=1.25)
+    seq = synthetic.render_sequence(cfg.camera, traj, scene)
+
+    def run():
+        s = System(cfg, device="cuda", enable_loop_closing=True)
+        s.init_draws = draws
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        s.run_sequence(seq)
+        s.shutdown()
+        return time.perf_counter() - t0
+
+    def split():
+        spent = collections.Counter()
+        calls = collections.Counter()
+        inner = {"on_keyframe": lc.LoopCloser.on_keyframe,
+                 "correct_loop": lc.correct_loop, "global_ba": lc.global_ba}
+
+        def timed(name):
+            def fn(*a, **kw):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                out = inner[name](*a, **kw)
+                torch.cuda.synchronize()
+                spent[name] += time.perf_counter() - t0
+                calls[name] += 1
+                return out
+            return fn
+
+        lc.LoopCloser.on_keyframe = timed("on_keyframe")
+        lc.correct_loop = timed("correct_loop")
+        lc.global_ba = timed("global_ba")
+        try:
+            wall = run()
+        finally:
+            lc.LoopCloser.on_keyframe = inner["on_keyframe"]
+            lc.correct_loop = inner["correct_loop"]
+            lc.global_ba = inner["global_ba"]
+        print(f"split run (synchronised around each stage): {wall:.4f} s; "
+              + "; ".join(f"{k} {spent[k]:.4f} s over {calls[k]} calls "
+                          f"({1e3 * spent[k] / max(calls[k], 1):.2f} ms each)"
+                          for k in inner)
+              + " (correct_loop is inside on_keyframe)")
+
+        # the closing call alone, on the saved map
+        m, ex = checkpoint.load_map(os.path.join(ASSETS,
+                                                 "smoke_loop_map.npz"),
+                                    device="cuda")
+
+        def closure():
+            c = saved_map_closer(cfg, ex)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            m2, closed = c.on_keyframe(m, int(ex["kf_id"]),
+                                       covis_row=ex["covis_row"])
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            c.maybe_run_gba(m2)
+            torch.cuda.synchronize()
+            assert closed
+            return t1 - t0, time.perf_counter() - t1
+
+        closure()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t_close, t_gba = closure()
+        ev = prof.key_averages()
+        busy = sum(e.self_device_time_total for e in ev
+                   if e.device_type == torch.autograd.DeviceType.CUDA)
+        n_k = sum(e.count for e in ev
+                  if e.device_type == torch.autograd.DeviceType.CUDA)
+        print(f"closing call on the saved map (profiled): on_keyframe "
+              f"{1e3 * t_close:.2f} ms + global_ba {1e3 * t_gba:.2f} ms wall; "
+              f"device busy {busy / 1e3:.3f} ms in {n_k} kernels "
+              f"({busy / max(n_k, 1):.2f} us each): device idle share "
+              f"{1 - busy / 1e6 / (t_close + t_gba):.4f}")
+        print(ev.table(sort_by="self_cuda_time_total", row_limit=12,
+                       max_name_column_width=60))
+
+    return run, split, LOOP_FRAMES
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("needs a GPU", file=sys.stderr)
@@ -141,10 +246,16 @@ def main() -> int:
     split = None
     if "--mapping" in sys.argv:
         run, split, n = mapping_runner(scene, traj)
+    elif "--loop" in sys.argv:
+        run, split, n = loop_runner()
     run()
     plain_wall = run()
     if split is not None:
         split()
+    if "--loop" in sys.argv:
+        print(f"unprofiled run: {plain_wall:.4f} s, {n / plain_wall:.2f} "
+              "frames/s")
+        return 0
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         wall = run()
     events = prof.key_averages()

@@ -1,5 +1,6 @@
-"""optim/ba: the dense-Schur LM (`solve_dense`, `solve_dense_compact`) and
-its helpers, the port against coslam_tpu on the same problem.
+"""optim/ba: the dense-Schur LM (`solve_dense`, `solve_dense_compact`), the
+matrix-free PCG solver (`solve`, `solve_body`) and their helpers, the port
+against coslam_tpu on the same problem.
 
 Bars: residuals / Jacobians within 1e-4 relative; poses within 1e-4,
 points within 1e-3, `obs_inlier` differing in at most 0.5% of the
@@ -86,6 +87,38 @@ def test_solve_dense_matches_reference(seed):
     # the solve did work: the free cameras moved, outliers were flagged
     assert float(tr.cost) < 0.5 * float(tba.solve_dense(
         tcfg.CameraConfig(**CAM), tp, 0).cost)
+
+
+@pytest.mark.parametrize("seed", [0, 1])
+def test_solve_matches_reference(seed):
+    """The matrix-free PCG solver against `coslam_tpu.optim.ba.solve` on
+    the well-observed problem (poses 1e-4, points 1e-3), and against the
+    port's own `solve_dense`: same optimum, truncated PCG against an exact
+    solve (poses 2e-3, points 2e-2, cost within 1 %)."""
+    jp, tp = _problem(seed)
+    jr = jba.solve(jcfg.CameraConfig(**CAM), jp, 6, 30)
+    tr = tba.solve(tcfg.CameraConfig(**CAM), tp, 6, 30)
+    _compare(jr, tr)
+    td = tba.solve_dense(tcfg.CameraConfig(**CAM), tp, 6)
+    np.testing.assert_allclose(tr.poses.numpy(), td.poses.numpy(), atol=2e-3)
+    np.testing.assert_allclose(tr.points.numpy(), td.points.numpy(),
+                               atol=2e-2)
+    np.testing.assert_allclose(float(tr.cost), float(td.cost), rtol=1e-2)
+    # fixed cameras did not move
+    np.testing.assert_allclose(tr.poses.numpy()[:2], tp.poses.numpy()[:2],
+                               atol=1e-6)
+
+
+def test_solve_body_is_solve_and_sharding_waits():
+    """`solve` is `solve_body` with no mesh axis; the sharded branch raises,
+    naming its ROADMAP item."""
+    _, tp = _problem(4)
+    cam = tcfg.CameraConfig(**CAM)
+    a = tba.solve(cam, tp, 2, 10)
+    b = tba.solve_body(cam, tp, 2, 10, 5.991, True, None)
+    np.testing.assert_array_equal(a.poses.numpy(), b.poses.numpy())
+    with pytest.raises(NotImplementedError, match="item 16"):
+        tba.solve_body(cam, tp, 2, 10, 5.991, True, "obs")
 
 
 @pytest.mark.parametrize("p_local", [512, 200])

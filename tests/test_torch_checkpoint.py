@@ -67,7 +67,7 @@ def test_load_system_from_reference_checkpoint(rng, tmp_path):
     path = str(tmp_path / "map.npz")
     jck.save_system(path, js)
 
-    ts = TSystem(_cfg(tcfg), device="cpu")
+    ts = TSystem(_cfg(tcfg), device="cpu", enable_loop_closing=False)
     tck.load_system(path, ts)
     _assert_maps_equal(ts.map, js.map)
     assert ts.state == "OK"
@@ -130,7 +130,7 @@ def test_load_system_widens_capacities_and_db(rng, tmp_path):
     small = tcfg.SystemConfig(
         extractor=tcfg.ExtractorConfig(**SMALL["extractor"]),
         mapper=tcfg.MapperConfig(max_keyframes=4, max_points=256))
-    ts = TSystem(small, device="cpu")
+    ts = TSystem(small, device="cpu", enable_loop_closing=False)
     assert ts.db.bows.shape[0] == 4
     tck.load_system(path, ts)
     assert ts.cfg.mapper.max_keyframes == 8
@@ -152,7 +152,7 @@ def test_save_system_loads_into_reference(rng, tmp_path):
     js.db.has[:] = True
     path = str(tmp_path / "j.npz")
     jck.save_system(path, js)
-    ts = TSystem(_cfg(tcfg), device="cpu")
+    ts = TSystem(_cfg(tcfg), device="cpu", enable_loop_closing=False)
     tck.load_system(path, ts)
     path2 = str(tmp_path / "t.npz")
     tck.save_system(path2, ts)

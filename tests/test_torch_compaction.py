@@ -99,7 +99,7 @@ def test_remap_after_compact_matches_reference(rng):
     jmap = _random_map(rng, _small(jcfg))
     tmap = jms.MapState(**{k: _t(v) for k, v in jmap._asdict().items()})
     js = JSystem(_small(jcfg), enable_loop_closing=False)
-    ts = TSystem(_small(tcfg), device="cpu")
+    ts = TSystem(_small(tcfg), device="cpu", enable_loop_closing=False)
     traj = [(3 * i, i % 6, np.eye(4, dtype=np.float32) * (1 + 0.1 * i))
             for i in range(6)]
     kp = rng.integers(-1, 59, 32).astype(np.int32)
@@ -136,7 +136,8 @@ def watermark_reference():
 def test_capacity_watermark_run_matches_reference(watermark_reference):
     js, seq = watermark_reference
     assert js.cfg.mapper.max_keyframes == 12     # the watermark fired
-    ts = TSystem(mapping_cfg(tcfg, K=6), device="cpu")
+    ts = TSystem(mapping_cfg(tcfg, K=6), device="cpu",
+                 enable_loop_closing=False)
     ts.init_draws = dict(js.draws)
     calls = []
     batch = ts._insert_keyframes_batch

@@ -8,6 +8,7 @@ import torch
 
 from coslam_tpu_torch import config as tcfg
 from coslam_tpu_torch.models import keyframe_db as tkdb
+from coslam_tpu_torch.models import loop_closing as tlc
 from coslam_tpu_torch.models import map_state as tms
 from coslam_tpu_torch.models.system import System
 from coslam_tpu_torch.utils import checkpoint as tck
@@ -71,3 +72,38 @@ def test_resolve_device(no_gpu):
         resolve_device()
     with pytest.raises(RuntimeError, match='device="cpu"'):
         resolve_device(torch.device("cuda", 0))
+
+
+def _tensors(obj):
+    """Every tensor reachable from an object's attributes (one level into
+    tuples, lists and dicts)."""
+    for v in vars(obj).values():
+        items = v.values() if isinstance(v, dict) else \
+            v if isinstance(v, (tuple, list)) else [v]
+        for t in items:
+            if isinstance(t, torch.Tensor):
+                yield t
+
+
+def test_loop_closer_stays_on_the_cpu(no_gpu):
+    """The LoopCloser a System builds on device="cpu" holds no tensor
+    elsewhere, shares the System's database, and what it computes on a CPU
+    map (a keyframe too young for any candidate; the edge arrays it hands
+    to correct_loop; a global BA) stays on the CPU."""
+    s = System(_cfg(), device="cpu", enable_loop_closing=True)
+    lc = s.loop_closer
+    assert isinstance(lc, tlc.LoopCloser) and lc.db is s.db
+    assert lc.sim3_draws is s.sim3_draws
+    assert all(t.device.type == "cpu" for t in _tensors(lc))
+    assert all(t.device.type == "cpu" for t in _tensors(s.db))
+    m = s.map._replace(kf_valid=torch.ones(4, dtype=torch.bool))
+    m2, closed = lc.on_keyframe(m, 3)
+    assert m2 is m and not closed
+    lc.loop_edges.append((3, 0))
+    prev, valid = lc._prev_loop_arrays(s.device)
+    assert prev.device.type == valid.device.type == "cpu"
+    assert prev[0].tolist() == [3, 0] and valid.tolist()[:2] == [True, False]
+    out = tlc.global_ba(s.cfg, m, iters=1)
+    assert all(t.device.type == "cpu" for t in out)
+    assert System(_cfg(), device="cpu",
+                  enable_loop_closing=False).loop_closer is None

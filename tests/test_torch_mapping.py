@@ -79,7 +79,7 @@ def test_track_mono_per_frame(reference):
     `_insert_keyframe`, frame by frame."""
     js0, seq = reference
     js = JSystem(mapping_cfg(jcfg), enable_loop_closing=False)
-    ts = TSystem(mapping_cfg(tcfg), device="cpu")
+    ts = TSystem(mapping_cfg(tcfg), device="cpu", enable_loop_closing=False)
     ts.init_draws = dict(js0.draws)
     for i in range(12):
         jT = js.track_mono(seq[i], i)
@@ -99,7 +99,7 @@ def test_resume_mapping_from_checkpoint(reference, tmp_path):
     jck.save_system(path, js0)
     js = JSystem(mapping_cfg(jcfg), enable_loop_closing=False)
     jck.load_system(path, js)
-    ts = TSystem(mapping_cfg(tcfg), device="cpu")
+    ts = TSystem(mapping_cfg(tcfg), device="cpu", enable_loop_closing=False)
     tck.load_system(path, ts)
     assert ts._host_n_pt == js._host_n_pt > 0
     for s in (js, ts):

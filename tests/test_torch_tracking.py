@@ -127,12 +127,17 @@ def test_track_chunk_matches_reference(saved_map):
 
 
 def test_unported_paths_raise():
-    """What is still unported raises, naming its ROADMAP item: loop closing
-    (13) and stereo / RGB-D (14).  A frame that tracks nothing no longer
-    raises: the System goes LOST and dead-reckons."""
-    with pytest.raises(NotImplementedError, match="item 13"):
-        TSystem(_cfg(tcfg), device="cpu", enable_loop_closing=True)
-    ts = TSystem(_cfg(tcfg), device="cpu")
+    """What is still unported raises, naming its ROADMAP item: the
+    observation-sharded BA (16) and stereo / RGB-D (14).  Loop closing no
+    longer raises: the System builds its LoopCloser.  A frame that tracks
+    nothing does not raise either: the System goes LOST and dead-reckons."""
+    from coslam_tpu_torch.optim import ba as tba
+    with pytest.raises(NotImplementedError, match="item 16"):
+        tba.solve_body(None, None, 1, 1, 5.991, True, "obs")
+    ts = TSystem(_cfg(tcfg), device="cpu", enable_loop_closing=True)
+    assert ts.loop_closer is not None and ts.loop_closer.db is ts.db
+    assert TSystem(_cfg(tcfg), device="cpu",
+                   enable_loop_closing=False).loop_closer is None
     img = np.zeros((480, 640), np.uint8)
     ts.state = "OK"
     ts.last_kp_pt = torch.full((512,), -1, dtype=torch.int32)
