@@ -2,6 +2,14 @@
 
     python3 chip_smoke.py
 
+It needs, beside itself, the repository's `coslam_tpu_torch/` package with
+its `assets/` (the JAX package's reference runs, written by
+scripts/make_torch_smoke_assets.py), the CUDA sources under
+`coslam_tpu_torch/csrc/`, which it builds with nvcc, and the shipped
+vocabulary `coslam_tpu/assets/vocab.npz`, read as data; it checks that they
+are there before anything else and names what is missing.  It imports
+nothing of JAX or of the JAX package.
+
 Phases (each prints its lines; any failure exits non-zero before the result
 lines):
 
@@ -70,9 +78,11 @@ lines):
      closing off.  Checks 0 lost frames, a loop closed within 3 keyframes of
      the JAX run's closing keyframe, ATE over the whole trajectory at most
      0.01 above the JAX run's and below the run's without loop closing;
-     (c) from the first frame, with and without loop closing.  The port's
-     run parts ways with the JAX run long before the revisit (PERF.md,
-     Findings), and by then its tracker may have joined the old map on its own:
+     (c) from the first frame, with and without loop closing, under
+     deterministic algorithms with the mapper cycle pinned
+     (MAPPER_CYCLE_S).  The port's run parts ways with the JAX run
+     long before the revisit (PERF.md, Findings), and by then its tracker
+     may have joined the old map on its own:
      checks 0 lost frames, ATE within LOOP_ATE_BAR of the JAX run's, and
      either a loop closed within 3 keyframes of the JAX run's or the
      revisit's first keyframes connected to the loop's first keyframes by
@@ -82,9 +92,42 @@ lines):
      readbacks per `on_keyframe`, K2 launches per closure and frames/s with
      and without loop closing.
 
+  7. stereo at KITTI width: `kitti_config()` (1241x376, 1000 features,
+     bf=386.1448) with K=64, P=16384, keyframe throttle 3, loop closing on;
+     60 frames of make_trajectory(60, seed=3) in make_scene(600, seed=3),
+     stereo pairs rendered with baseline bf / fx, through
+     `System(cfg, device="cuda").run_sequence(left, right_images=right)`.
+     Checks frame 0's `match_stereo` on the JAX run's keypoints (valid sets
+     differing in at most 1% of keypoints, depth within 1e-3 relative where
+     both are valid), then, on a run under deterministic algorithms with
+     the mapper cycle pinned (MAPPER_CYCLE_S), against the JAX run
+     (coslam_tpu_torch/assets/smoke_stereo_expected.npz): the
+     initialisation frame, 0 lost, every frame tracked, keyframes made
+     (the initial one and those inserted) within max(1, 10%), metric ATE
+     (no scale alignment) at most 0.01
+     above the JAX run's, camera centres within DEPTH_CENTRE_BAR m
+     unaligned; K1 launched at least twice per frame, K2 and K3 launched;
+     then K2 inside every backend insert of a timed run.  Prints frames/s
+     (median of DEPTH_TIMED_RUNS plain runs and their spread) and ms per
+     backend insert (CUDA events).
+  8. RGB-D: the bench's camera (640x480, fx=400) with bf=48 and
+     render_depth, 1000 features, K=64, P=16384, loop closing off, 60
+     frames, `run_sequence(rgb, depths=depth)`
+     (coslam_tpu_torch/assets/smoke_rgbd_expected.npz): frame 0's
+     `rgbd_depth` equal to the JAX run's, then phase 7's gates with K1 at
+     least once per frame.
+  9. online vocabulary: (a) `bow.train_vocabulary_device` on the JAX run's
+     descriptor pool at its first retrain milestone with its permutation
+     (coslam_tpu_torch/assets/smoke_vocab_expected.npz): the words bit for
+     bit, `bow_rows` within 1e-6; (b) phase 8's System again over
+     VOCAB_FRAMES frames with LoopConfig(vocab_pretrained=False): retrains
+     at the JAX run's `_n_added` milestones, after each the database rows
+     equal to `bow_rows` of the new words (1e-6); prints ms per retrain
+     (CUDA events).
+
 The second-to-last line is a JSON object with each kernel's launches (in
-the mapping run; `launches_by_path` and `launches_per_frame` have all four
-runs), error, times and bound.  K2's and K3's headline numbers are those of
+the mapping run; `launches_by_path` and `launches_per_frame` have every
+path's run), error, times and bound.  K2's and K3's headline numbers are those of
 the inputs most like the paths' own (the mapping path's pair of launches on
 a map-like table; 215 of 1024 observations with information); the other
 shapes stand under `ms_by_shape`, `bound_ms_by_shape` and `dense`.
@@ -117,6 +160,23 @@ LOOP_SPLIT = 70                    # the JAX run's checkpoint: frames 0-69
 # on the card differ as well (scatter-add order): ATE between 0.108 and
 # 0.133 over three runs against the JAX run's 0.107 (PERF.md, Findings).
 LOOP_ATE_BAR = 0.04
+# Two runs of one code differ (ROADMAP Queue 3): a keyframe that arrives
+# within the measured mapper cycle gets a truncated local BA
+# (`System._mapper_busy_frames`, from the host's wall clock even with the
+# throttle pinned), and `index_add_` on the card sums in the order its
+# atomics land.  Unpinned, a slow host's runs failed the gates of phase 6
+# (c) and 7 that a fast host's passed (PERF.md, Findings).  The runs
+# that phases 6 (c), 7 and 8 gate therefore pin both, so that one card and
+# one software stack give one outcome: deterministic algorithms, and the
+# mapper cycle at these seconds (pin_mapper_cycle).  The JAX stereo run
+# measured 0.39-0.52 s on its CPU host (4-6 frames at KITTI's 10 frames/s),
+# the card 0.1-0.2 s, so it truncated more local BAs than the card does:
+# pinned at 0.1 or 0.15 s the stereo run made 12 keyframes against the JAX
+# run's 10, at 1.0 s 10 (RGB-D: 41 and 43 against 40).  Stereo and RGB-D
+# take 1.0 s.  The loop run parts from its JAX run at frame 1 and cannot
+# follow it: it takes the System's own prior of 0.1 s, 3 frames at 30
+# frames/s, inside the pinned throttle (at 1.0 s it drifted to ATE 0.186).
+MAPPER_CYCLE_S = {"loop": 0.1, "stereo": 1.0, "rgbd": 1.0}
 TPU_KERNELS = "coslam_tpu/ops/pallas_kernels.py"
 # The JAX run's initialisation frame is decided by f32 rounding: at its
 # frame 13 the winning F hypothesis leads the runner-up by less than the
@@ -127,6 +187,29 @@ MAPPING_INIT_WINDOW = 3
 # camera-centre bar after similarity alignment to the JAX run, in the JAX
 # map's units: 3x the CPU port's divergence on this run (PERF.md, PR 2)
 MAPPING_CENTRE_BAR = 0.025
+DEV = "cuda"                       # phases 7-9 run here
+DEPTH_FRAMES = 60                  # phases 7 and 8
+DEPTH_TIMED_RUNS = 3               # phases 7 and 8: frames/s, median
+VOCAB_FRAMES = 30                  # phase 9 (b)
+RGBD_BF = 48.0                     # 12 cm at fx = 400
+# Unaligned camera-centre bar against the JAX run, in metres.  A landmark
+# made from depth and seen by its keyframe alone has no constraint along
+# its ray in the local BA (no stereo term, as in the JAX package), so two
+# f32 solves of one insert part by centimetres (PERF.md, Findings):
+# the port on the CPU ends 0.0325 m (stereo) and 0.0482 m (RGB-D) from the
+# JAX run.  The bar is twice the larger; accuracy is gated by the metric
+# ATE against the ground truth.
+DEPTH_CENTRE_BAR = 0.1
+# what the script reads beside itself (the kernels' sources and the JAX
+# package's reference runs)
+NEEDS = (["coslam_tpu_torch/__init__.py", "coslam_tpu/assets/vocab.npz"]
+         + [f"coslam_tpu_torch/csrc/{n}" for n in
+            ("fast_score_nms.cu", "masked_match.cu", "pose_opt_lm.cu")]
+         + [f"coslam_tpu_torch/assets/{n}.npz" for n in
+            ("smoke_map", "smoke_expected", "smoke_mapping_expected",
+             "smoke_reloc_expected", "smoke_loop_map", "smoke_loop_resume",
+             "smoke_loop_expected", "smoke_stereo_expected",
+             "smoke_rgbd_expected", "smoke_vocab_expected")])
 # Published peaks of one H100 SXM: f32 outside the tensor cores (integer
 # operations are counted at the same rate) and device memory.
 PEAK_OPS_PER_S = 67e12
@@ -654,6 +737,7 @@ def phase_mapping(seq: np.ndarray, gt_poses: np.ndarray):
     check(float(c_err.max()) <= MAPPING_CENTRE_BAR,
           f"aligned camera centre off by {c_err.max()}")
     fps = MAPPING_FRAMES / dt          # every input frame, init included
+    repeat = run_to_run(T, probe_run, fresh, seq)
     info = slam.shutdown()
     print(f"[mapping] frames 0-{MAPPING_FRAMES - 1} from the first frame: "
           f"reference frame {ref}, initialised at {init} (JAX {exp_init}), "
@@ -674,7 +758,67 @@ def phase_mapping(seq: np.ndarray, gt_poses: np.ndarray):
           f"{syncs_total / max(probe_inserted, 1):.1f} per keyframe, "
           f"{sum(probe.syncs) / max(probe_inserted, 1):.1f} per keyframe inside "
           f"the backend inserts", flush=True)
+    print(f"[mapping] run to run: {repeat}", flush=True)
     return launches, fps, slam, (sc, R, t)
+
+
+class DeterministicAlgorithms:
+    """torch.use_deterministic_algorithms(True, warn_only=True) inside the
+    block (uninitialised memory left as it is); `ops` collects the ops torch
+    reports as having no deterministic implementation."""
+
+    def __enter__(self):
+        import torch.utils.deterministic
+        self._det = torch.utils.deterministic
+        self._fill = self._det.fill_uninitialized_memory
+        self._det.fill_uninitialized_memory = False
+        torch.use_deterministic_algorithms(True, warn_only=True)
+        self._caught = warnings.catch_warnings(record=True)
+        self._w = self._caught.__enter__()
+        warnings.simplefilter("always")
+        self.ops = set()
+        return self
+
+    def __exit__(self, *exc):
+        import re
+        self._caught.__exit__(*exc)
+        torch.use_deterministic_algorithms(False)
+        self._det.fill_uninitialized_memory = self._fill
+        for w in self._w:
+            m = re.match(r"(.+?) does not have a deterministic",
+                         str(w.message))
+            if m:
+                self.ops.add(m.group(1).strip())
+
+
+def pin_mapper_cycle(s, seconds: float) -> None:
+    """Fix the System's measured mapper cycle (the InterruptBA window) at
+    `seconds` instead of the host's wall clock."""
+    s._insert_cost_s = seconds
+    s._note_insert_cost = lambda dt: None
+
+
+def run_to_run(T, other, fresh, seq) -> str:
+    """Whether two runs of the mapping path on the card give the same
+    poses, and which ops torch itself calls nondeterministic on the path
+    (two more runs under torch.use_deterministic_algorithms(warn_only))."""
+
+    def diff(a, b):
+        if a.shape != b.shape:
+            return f"{a.shape[0]} against {b.shape[0]} poses"
+        return "bit-equal" if np.array_equal(a, b) \
+            else f"max pose difference {np.abs(a - b).max():.3e}"
+
+    plain = diff(T, other.trajectory_poses()[1])
+    runs = []
+    with DeterministicAlgorithms() as det:
+        for _ in range(2):
+            s = fresh()
+            s.run_sequence(seq)
+            runs.append(s.trajectory_poses()[1])
+    return (f"two plain runs {plain}; two runs under "
+            f"use_deterministic_algorithms {diff(*runs)}, ops torch reports "
+            f"nondeterministic on the path: {sorted(det.ops) or 'none'}")
 
 
 def phase_reloc(slam, align, seq: np.ndarray):
@@ -979,6 +1123,7 @@ def phase_loop_run(card: str):
             first = LOOP_SPLIT
         else:
             s.init_draws = draws
+            pin_mapper_cycle(s, MAPPER_CYCLE_S["loop"])
         torch.cuda.synchronize()
         ck.reset_launch_counts()
         with EventTimer(lc, "correct_loop") as timers["correct_loop"], \
@@ -1077,9 +1222,10 @@ def phase_loop_run(card: str):
     check(all(v > 0 for v in on["launches"].values()),
           f"launches {on['launches']}")
 
-    # ---- (c) from the first frame
-    off0 = run(False, False)
-    on0 = run(True, False)
+    # ---- (c) from the first frame, its run-to-run causes pinned
+    with DeterministicAlgorithms() as det:
+        off0 = run(False, False)
+        on0 = run(True, False)
     f0 = closure_facts(on0)
     # where no loop is closed, the revisit must have joined the old map by
     # tracking: the first keyframe of the revisit shares landmarks with the
@@ -1087,15 +1233,20 @@ def phase_loop_run(card: str):
     s0 = on0["s"]
     back = np.nonzero(f0["kf_valid"] & (f0["kf_frame_id"] >= f_jax))[0]
     from coslam_tpu_torch.models import map_state as ms
-    shared = ms.covisibility_rows(
-        s0.map, torch.as_tensor(back[:3], device="cuda"))[:, :4] \
-        .max().item() if back.size else 0
+    per_kf = ms.covisibility_rows(
+        s0.map, torch.as_tensor(back, device="cuda"))[:, :4] \
+        .amax(dim=1).tolist() if back.size else []
+    shared = max(per_kf[:3], default=0)
     print(f"[loop c] frames 0-{LOOP_FRAMES - 1} from the first frame, loop "
           f"closing on: initialised at {int(on0['ids'][1])} (JAX "
           f"{int(exp['init_frame'])}), {len(on0['ids'])} poses, lost 0, "
           f"keyframes {int(f0['kf_valid'].sum())}; {f0['what']}; landmarks "
           f"the revisit's first keyframes share with keyframes 0-3: up to "
-          f"{shared} (connected from {cfg.mapper.covis_edge_threshold}); ATE "
+          f"{shared} (connected from {cfg.mapper.covis_edge_threshold}; "
+          f"every revisit keyframe, frames "
+          f"{f0['kf_frame_id'][back].tolist()}: {per_kf}); mapper cycle "
+          f"pinned at {MAPPER_CYCLE_S['loop']} s, deterministic algorithms "
+          f"(reported without: {sorted(det.ops) or 'none'}); ATE "
           f"{on0['ate']:.5f} (JAX {ate_jax:.5f}; this run without loop "
           f"closing {off0['ate']:.5f}); launches {on0['launches']}",
           flush=True)
@@ -1115,7 +1266,283 @@ def phase_loop_run(card: str):
     return on["launches"], on0["launches"]
 
 
+def depth_config(sensor: str, loop=None):
+    import dataclasses
+    from coslam_tpu_torch.config import (LoopConfig, MapperConfig,
+                                         TrackerConfig, kitti_config)
+    if sensor == "stereo":
+        return kitti_config(
+            mapper=MapperConfig(max_keyframes=64, max_points=16384),
+            tracker=TrackerConfig(mapper_latency_frames=3))
+    cfg = mapping_config()
+    return cfg.replace(camera=dataclasses.replace(cfg.camera, bf=RGBD_BF),
+                       sensor="rgbd", loop=loop or LoopConfig())
+
+
+def depth_frames(cfg, n: int):
+    """(left images, right images or depth maps, ground-truth poses), as
+    scripts/make_torch_smoke_assets.py renders them."""
+    from coslam_tpu_torch.utils import synthetic
+    scene = synthetic.make_scene(600, seed=3)
+    poses = synthetic.make_trajectory(DEPTH_FRAMES, seed=3).poses_cw[:n]
+    cam = cfg.camera
+    if cfg.sensor == "stereo":
+        pairs = [synthetic.render_stereo_frame(cam, T, scene,
+                                               baseline=cam.bf / cam.fx)
+                 for T in poses]
+        return (np.stack([p[0] for p in pairs]),
+                np.stack([p[1] for p in pairs]), poses)
+    return (synthetic.render_sequence(cam, synthetic.Trajectory(poses),
+                                      scene),
+            np.stack([synthetic.render_depth(cam, T, scene) for T in poses]),
+            poses)
+
+
+def _kps(ex, prefix: str):
+    out = {k: torch.from_numpy(np.ascontiguousarray(ex[f"{prefix}_{k}"]))
+           .to(DEV) for k in ("uv", "level", "desc", "valid")}
+    out["desc"] = out["desc"].view(torch.int32)
+    return out
+
+
+def check_frame0_depth(sensor: str, cfg, ex, left, aux) -> str:
+    """Frame 0's per-keypoint depth on the JAX run's keypoints."""
+    from coslam_tpu_torch.ops import stereo
+    kl = _kps(ex, "kpl")
+    L = torch.from_numpy(left[0]).to(DEV)
+    A = torch.from_numpy(aux[0]).to(DEV)
+    if sensor == "stereo":
+        sd = stereo.match_stereo(cfg.camera, cfg.extractor, cfg.matcher, kl,
+                                 _kps(ex, "kpr"), L, A)
+    else:
+        sd = stereo.rgbd_depth(cfg.camera, kl["uv"], kl["valid"], A)
+    tv, jv = sd.valid.cpu().numpy(), ex["sd_valid"]
+    td, jd = sd.depth.cpu().numpy(), ex["sd_depth"]
+    both = tv & jv
+    rel = np.abs(td - jd)[both] / jd[both]
+    diff = float((tv != jv).mean())
+    if sensor == "stereo":
+        check(diff <= 0.01, f"frame 0 stereo valid sets differ in {diff}")
+        check(float(rel.max()) <= 1e-3, f"frame 0 depth off by {rel.max()}")
+    else:
+        check(diff == 0.0 and float(rel.max()) == 0.0,
+              f"frame 0 rgbd_depth differs ({diff}, {rel.max()})")
+    return (f"frame 0: {int(tv.sum())} keypoints with depth (JAX "
+            f"{int(jv.sum())}), valid sets differ in {diff:.4f}, depth max "
+            f"rel err {rel.max():.2e}")
+
+
+def phase_depth(sensor: str, card: str):
+    """Phase 7 (stereo) or 8 (RGB-D)."""
+    from coslam_tpu_torch.models.system import System
+    from coslam_tpu_torch.ops import cuda_kernels as ck
+    from coslam_tpu_torch.utils import evaluation
+
+    tag = "stereo" if sensor == "stereo" else "rgbd"
+    cfg = depth_config(sensor)
+    ex = np.load(os.path.join(ASSETS, f"smoke_{tag}_expected.npz"))
+    left, aux, poses = depth_frames(cfg, DEPTH_FRAMES)
+    frame0 = check_frame0_depth(sensor, cfg, ex, left, aux)
+    kw = {"right_images" if sensor == "stereo" else "depths": aux}
+    loops = sensor == "stereo"
+
+    def fresh():
+        s = System(cfg, device=DEV, enable_loop_closing=loops)
+        pin_mapper_cycle(s, MAPPER_CYCLE_S[tag])
+        return s
+
+    def centre_err(s):
+        """Largest unaligned camera-centre distance to the JAX run's."""
+        T = s.trajectory_poses()[1]
+        n = min(len(T), len(ex["T"]))
+        return float(np.linalg.norm(
+            evaluation.trajectory_xyz(T[:n])
+            - evaluation.trajectory_xyz(ex["T"][:n]), axis=1).max())
+
+    fresh().run_sequence(left[:12], **{k: v[:12] for k, v in kw.items()})
+    # the gated run: deterministic algorithms, the mapper cycle pinned
+    slam = fresh()
+    torch.cuda.synchronize()
+    ck.reset_launch_counts()
+    with DeterministicAlgorithms() as det:
+        slam.run_sequence(left, **kw)
+        torch.cuda.synchronize()
+    launches = dict(ck.LAUNCHES)
+    # timed runs, as phase 4: plain, the System built before the clock
+    fps, c_errs = [], []
+    for rep_i in range(DEPTH_TIMED_RUNS):
+        s = fresh()
+        probe = BackendProbe() if rep_i == DEPTH_TIMED_RUNS - 1 else None
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        if probe is not None:
+            with probe:
+                s.run_sequence(left, **kw)
+        else:
+            s.run_sequence(left, **kw)
+        torch.cuda.synchronize()
+        fps.append(DEPTH_FRAMES / (time.perf_counter() - t0))
+        c_errs.append(centre_err(s))
+    insert_ms = probe.ms()
+    probe_inserted = sum(1 for st in s.stats if st.get("keyframe"))
+
+    ids, T = slam.trajectory_poses()
+    lost = sum(1 for st in slam.stats if st.get("lost"))
+    inserted = sum(1 for st in slam.stats if st.get("keyframe"))
+    made, j_made = inserted + 1, len(ex["kf_frames"]) + 1
+    n_kf = int(slam.map.kf_valid.sum())
+    j_kf = int(ex["n_keyframes"])
+    check(lost == 0, f"{tag}: {lost} lost frames")
+    check(int(ids[0]) == int(ex["frame_ids"][0]),
+          f"{tag}: initialised at frame {ids[0]}, JAX run at "
+          f"{ex['frame_ids'][0]}")
+    check(list(ids) == list(ex["frame_ids"]), f"{tag}: tracked frames {ids}")
+    check(abs(made - j_made) <= max(1, 0.1 * j_made),
+          f"{tag}: {made} keyframes made, JAX run {j_made}")
+    check(bool(np.isfinite(T).all()), f"{tag}: non-finite poses")
+    ate = evaluation.ate_rmse(evaluation.trajectory_xyz(T),
+                              evaluation.trajectory_xyz(poses[ids]),
+                              with_scale=False)
+    check(ate <= float(ex["ate"]) + 0.01,
+          f"{tag}: metric ATE {ate} vs JAX {float(ex['ate'])}")
+    c_err = centre_err(slam)
+    check(c_err <= DEPTH_CENTRE_BAR,
+          f"{tag}: camera centres off by {c_err} m")
+    k1_per_frame = 2 if sensor == "stereo" else 1
+    check(launches["fast_score_nms"] >= k1_per_frame * DEPTH_FRAMES,
+          f"{tag}: K1 launched {launches['fast_score_nms']} times in "
+          f"{DEPTH_FRAMES} frames")
+    check(launches["masked_match"] > 0 and launches["pose_opt_lm"] > 0,
+          f"{tag}: launches {launches}")
+    check(len(probe.k2) == probe_inserted > 0
+          and all(k >= 2 for k in probe.k2),
+          f"{tag}: K2 launches per backend insert {probe.k2}")
+    info = slam.shutdown()
+    print(f"[{tag}] {frame0}", flush=True)
+    print(f"[{tag}] {DEPTH_FRAMES} frames at {cfg.camera.width}x"
+          f"{cfg.camera.height}, {cfg.extractor.n_features} features: "
+          f"initialised at frame {ids[0]} (JAX {ex['frame_ids'][0]}), "
+          f"{len(ids)} tracked, lost {lost}, keyframes made {made} (JAX "
+          f"{j_made}), valid after culling {n_kf} (JAX {j_kf}), points "
+          f"{int(slam.map.pt_valid.sum())} (JAX {int(ex['n_points'])}), "
+          f"loops {slam.n_loops_closed} (JAX {int(ex['n_loops'])}); metric "
+          f"ATE {ate:.5f} (JAX {float(ex['ate']):.5f}); unaligned centre err "
+          f"vs JAX max {c_err:.2e} m (bar {DEPTH_CENTRE_BAR}; the "
+          f"timed runs, not pinned to one outcome: "
+          f"{', '.join(f'{e:.2e}' for e in c_errs)}); mapper cycle pinned "
+          f"at {MAPPER_CYCLE_S[tag]} s, deterministic algorithms (reported "
+          f"without: {sorted(det.ops) or 'none'}); chunk "
+          f"discard rate {info['chunk_discard_rate']} (JAX "
+          f"{float(ex['chunk_discard_rate'])}); launches {launches}",
+          flush=True)
+    print(f"[{tag}] {np.median(fps):.2f} frames/s, median of "
+          f"{DEPTH_TIMED_RUNS} plain runs "
+          f"(min {min(fps):.2f}, max {max(fps):.2f}; {card}); backend insert "
+          f"{np.mean(insert_ms):.3f} ms per keyframe (CUDA events, "
+          f"{len(insert_ms)} inserts, min {min(insert_ms):.3f} max "
+          f"{max(insert_ms):.3f}); K2 launches per insert {probe.k2}",
+          flush=True)
+    return launches
+
+
+def phase_vocab(card: str):
+    """Phase 9: online vocabulary training on the card."""
+    from coslam_tpu_torch.config import LoopConfig
+    from coslam_tpu_torch.models.system import System
+    from coslam_tpu_torch.ops import bow
+    from coslam_tpu_torch.ops import cuda_kernels as ck
+
+    ex = np.load(os.path.join(ASSETS, "smoke_vocab_expected.npz"))
+    K, N = int(ex["K"]), int(ex["N"])
+    desc = np.zeros((K, N, 8), np.uint32)
+    ok = np.zeros((K, N), bool)
+    desc[ex["kf"]] = ex["desc"]
+    ok[ex["kf"]] = ex["kp_valid"]
+    d = torch.from_numpy(desc.view(np.int32)).to(DEV)
+    v = torch.from_numpy(ok).to(DEV)
+    W = int(ex["words"].shape[0])
+    perm = ex["perm"].astype(np.int64)
+
+    def train():
+        return bow.train_vocabulary_device(d.reshape(K * N, 8),
+                                           v.reshape(-1), W, 6, perm=perm)
+
+    words = train()
+    check(np.array_equal(words.cpu().numpy().view(np.uint32), ex["words"]),
+          "vocab: trained words differ from the JAX run's")
+    rows = bow.bow_rows(d, v, words, W).cpu().numpy()[ex["row_kf"]]
+    err = float(np.abs(rows - ex["rows"]).max())
+    check(err <= 1e-6, f"vocab: bow_rows off by {err}")
+    train_ms = time_cuda(train, reps=5, warmup=1)
+    rows_ms = time_cuda(lambda: bow.bow_rows(d, v, words, W), reps=5,
+                        warmup=1)
+    print(f"[vocab] (a) {int(ok.sum())} descriptors of {len(ex['kf'])} "
+          f"keyframes in a pool of {K * N}, {W} words, 6 iterations: words "
+          f"bit-equal to the JAX run's, bow_rows max err {err:.1e}; "
+          f"train_vocabulary_device {train_ms:.3f} ms, bow_rows over "
+          f"{K} keyframes {rows_ms:.3f} ms (CUDA events; {card})",
+          flush=True)
+
+    cfg = depth_config("rgbd", LoopConfig(vocab_pretrained=False))
+    left, aux, _ = depth_frames(cfg, VOCAB_FRAMES)
+    s = System(cfg, device=DEV, enable_loop_closing=False)
+    pin_mapper_cycle(s, MAPPER_CYCLE_S["rgbd"])
+    s.db.retrain_perms = {m: perm for m in cfg.loop.vocab_retrain_at}
+    inner = s.db.maybe_retrain
+    retrains = []
+
+    def recording(m):
+        before = s.db._version
+        start = torch.cuda.Event(enable_timing=True)
+        stop = torch.cuda.Event(enable_timing=True)
+        start.record()
+        inner(m)
+        stop.record()
+        if s.db._version == before:
+            return
+        okm = m.kf_kp_valid & m.kf_valid[:, None]
+        want = bow.bow_rows(m.kf_desc, okm, s.db.vocab, s.db.n_words) \
+            .cpu().numpy()
+        upd = s.db.has & m.kf_valid.cpu().numpy()
+        e = float(np.abs(s.db.bows[upd] - want[upd]).max())
+        retrains.append((s.db._n_added, start, stop, e))
+
+    s.db.maybe_retrain = recording
+    torch.cuda.synchronize()
+    ck.reset_launch_counts()
+    s.run_sequence(left, depths=aux)
+    torch.cuda.synchronize()
+    launches = dict(ck.LAUNCHES)
+    milestones = [r[0] for r in retrains]
+    j_milestones = [int(x) for x in ex["milestones"]]
+    check(milestones == j_milestones,
+          f"vocab: retrained at {milestones}, JAX run at {j_milestones}")
+    check(all(r[3] <= 1e-6 for r in retrains),
+          f"vocab: database rows off by {[r[3] for r in retrains]}")
+    check(not any(st.get("lost") for st in s.stats), "vocab: lost frames")
+    ms = [a.elapsed_time(b) for _, a, b, _ in retrains]
+    print(f"[vocab] (b) RGB-D, {VOCAB_FRAMES} frames, no pretrained "
+          f"vocabulary: retrained at {milestones} added keyframes (JAX "
+          f"{j_milestones}), rows max err "
+          f"{max(r[3] for r in retrains):.1e}; ms per retrain "
+          f"{[round(x, 3) for x in ms]} (CUDA events; {card}); keyframes "
+          f"{int(s.map.kf_valid.sum())} (JAX {int(ex['n_keyframes'])}); "
+          f"launches {launches}", flush=True)
+    return launches
+
+
+def preflight() -> None:
+    """Fail at once, naming it, if what the script reads beside itself is
+    missing (it was copied out of the repository alone)."""
+    missing = [n for n in NEEDS if not os.path.isfile(os.path.join(ROOT, n))]
+    check(not missing, f"{len(missing)} files missing beside chip_smoke.py "
+          f"in {ROOT}: {', '.join(missing)} — run it from a checkout of the "
+          "repository (it needs the coslam_tpu_torch package with its "
+          "assets/ and csrc/, and coslam_tpu/assets/vocab.npz)")
+
+
 def main() -> int:
+    preflight()
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is False: this smoke run needs a GPU")
     sys.path.insert(0, ROOT)
@@ -1131,20 +1558,40 @@ def main() -> int:
     seq = synthetic.render_sequence(
         cfg.camera, synthetic.Trajectory(traj.poses_cw[lo:hi]), scene)
 
+    clock = [("start", time.perf_counter())]
+
+    def lap(name):
+        clock.append((name, time.perf_counter()))
+
     rows = phase_kernels(cfg)
+    lap("kernels")
     loc_launches, _fps = phase_slice(seq, cfg)
+    lap("slice")
     mapping_seq = synthetic.render_sequence(
         cfg.camera, synthetic.Trajectory(traj.poses_cw[:MAPPING_FRAMES]),
         scene)
     map_launches, _fps, slam, align = phase_mapping(
         mapping_seq, traj.poses_cw[:MAPPING_FRAMES])
+    lap("mapping")
     reloc_launches, n_reloc = phase_reloc(slam, align, mapping_seq)
     del slam
+    lap("reloc")
     loop_a = phase_loop_map(card)
     loop_b, loop_c = phase_loop_run(card)
     check(loop_a["masked_match"] > 0 and loop_b["masked_match"] > 0,
           "K2 was not launched on the loop-closing path")
+    lap("loop")
+    stereo_l = phase_depth("stereo", card)
+    lap("stereo")
+    rgbd_l = phase_depth("rgbd", card)
+    lap("rgbd")
+    vocab_l = phase_vocab(card)
+    lap("vocab")
     check("jax" not in sys.modules, "jax was imported")
+    print("[time] seconds per phase after the card and the build: "
+          + ", ".join(f"{b[0]} {b[1] - a[1]:.1f}"
+                      for a, b in zip(clock, clock[1:]))
+          + f"; {clock[-1][1] - clock[0][1]:.1f} in all", flush=True)
     n_loc = LOC_FRAMES[1] - LOC_FRAMES[0]
     for r in rows:
         r["launches"] = map_launches[r["name"]]
@@ -1154,7 +1601,10 @@ def main() -> int:
                                  "loop_closing": loop_c[r["name"]],
                                  "loop_closing_resumed": loop_b[r["name"]],
                                  "loop_closure_on_saved_map":
-                                     loop_a[r["name"]]}
+                                     loop_a[r["name"]],
+                                 "stereo": stereo_l[r["name"]],
+                                 "rgbd": rgbd_l[r["name"]],
+                                 "vocab": vocab_l[r["name"]]}
         # per tracked frame of the localization slice, per input frame of
         # the mapping run (initialisation and backend inserts included) and
         # of the kidnap (grey frames and relocalization attempts included)
@@ -1163,7 +1613,9 @@ def main() -> int:
             "localization": loc_launches[r["name"]] / n_loc,
             "mapping": map_launches[r["name"]] / MAPPING_FRAMES,
             "relocalization": reloc_launches[r["name"]] / n_reloc,
-            "loop_closing": loop_c[r["name"]] / LOOP_FRAMES}
+            "loop_closing": loop_c[r["name"]] / LOOP_FRAMES,
+            "stereo": stereo_l[r["name"]] / DEPTH_FRAMES,
+            "rgbd": rgbd_l[r["name"]] / DEPTH_FRAMES}
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

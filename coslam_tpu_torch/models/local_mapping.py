@@ -12,9 +12,9 @@ tensors), so the backend never reads a value back to the host.
 Where the reference's scatters can receive two sources for one slot, the
 later source wins, as in XLA (`map_state.scatter_set`); the neighbour
 fuse's `lax.scan` is a Python loop in which each neighbour sees the map the
-previous one left.  `add_depth_points` waits for stereo/RGB-D (ROADMAP
-Queue 1 item 14) and `backend_post_insert` for cooperative mapping
-(item 15).
+previous one left.  Stereo / RGB-D keyframes add landmarks straight from
+sensor depth (`add_depth_points`).  `backend_post_insert` waits for
+cooperative mapping (ROADMAP Queue 1 item 15).
 """
 
 from __future__ import annotations
@@ -30,6 +30,7 @@ from coslam_tpu_torch.models.frame import Frame
 from coslam_tpu_torch.models.tracking import _const
 from coslam_tpu_torch.ops import bow, hamming, matching
 from coslam_tpu_torch.optim import ba
+from coslam_tpu_torch.utils import camera as cam_mod
 from coslam_tpu_torch.utils import geometry as geo
 
 INF = matching.INF
@@ -158,6 +159,57 @@ def _pad_set(arr: torch.Tensor, slot: torch.Tensor, can: torch.Tensor,
     upd = torch.where(can.reshape((-1,) + (1,) * (vals.dim() - 1)), vals,
                       big[slot])
     return ms.scatter_set(big, slot, upd)[:-1]
+
+
+def add_depth_points(cfg: SystemConfig, m: ms.MapState, kf_id, kp_depth,
+                     close_only: bool = True) -> ms.MapState:
+    """Create landmarks straight from sensor depth for a keyframe's
+    unassociated keypoints (reference stereo / RGB-D CreateNewKeyFrame,
+    Tracking.cc:1065-1140, and StereoInitialization): backproject and bind
+    them to the keyframe.  Initialisation takes every positive depth
+    (close_only=False); later keyframes only "close" points below
+    mThDepth = bf * ThDepth / fx (Tracking.cc:105-117)."""
+    cam = cfg.camera
+    dev = m.pt_pos.device
+    scales = _table(cfg.extractor.scale_factors, dev)
+    if close_only:
+        depth_th = (cam.bf / cam.fx) * cam.depth_th_factor if cam.bf > 0 \
+            else 8.0
+    else:
+        depth_th = 1e9
+    kf_id = torch.as_tensor(kf_id, device=dev)
+    row = _row(m.kf_obs_pt, kf_id)
+    need = _row(m.kf_kp_valid, kf_id) & (row < 0) \
+        & (kp_depth > 0.05) & (kp_depth < depth_th)
+    T = _row(m.kf_pose, kf_id)
+    Xc = cam_mod.backproject(cam, _row(m.kf_uv, kf_id), kp_depth)
+    Xw = geo.transform_points(geo.se3_inverse(T), Xc)
+
+    P = m.pt_pos.shape[0]
+    cum = torch.cumsum(need.to(torch.int32), 0) - 1
+    slot = m.n_pt + cum
+    can = need & (slot < P)
+    slot_safe = torch.where(can, slot, P).long()
+    rays = Xw - _centers(T)
+    d = torch.linalg.vector_norm(rays, dim=1) + 1e-9
+    n = Xw.shape[0]
+    ones_i = torch.ones(n, dtype=torch.int32, device=dev)
+    m = m._replace(
+        pt_pos=_pad_set(m.pt_pos, slot_safe, can, Xw),
+        pt_valid=_pad_set(m.pt_valid, slot_safe, can, can),
+        pt_desc=_pad_set(m.pt_desc, slot_safe, can, _row(m.kf_desc, kf_id)),
+        pt_normal=_pad_set(m.pt_normal, slot_safe, can, rays / d[:, None]),
+        pt_max_dist=_pad_set(m.pt_max_dist, slot_safe, can,
+                             d * scales[_row(m.kf_level, kf_id).long()]),
+        pt_ref_kf=_pad_set(m.pt_ref_kf, slot_safe, can, ones_i * kf_id),
+        pt_first_kf=_pad_set(m.pt_first_kf, slot_safe, can,
+                             ones_i * (m.n_kf - 1)),
+        pt_visible=_pad_set(m.pt_visible, slot_safe, can, ones_i),
+        pt_found=_pad_set(m.pt_found, slot_safe, can, ones_i),
+        n_pt=torch.clamp(m.n_pt + can.sum(), max=P).to(torch.int32),
+    )
+    new_id = torch.where(can, slot.to(torch.int32), row)
+    return m._replace(kf_obs_pt=_set_row(m.kf_obs_pt, kf_id, new_id))
 
 
 def create_map_points(cfg: SystemConfig, m: ms.MapState,
@@ -650,11 +702,9 @@ def backend_insert(cfg: SystemConfig, m: ms.MapState, frame: Frame,
     bookkeeping reads — the BoW row (Frame::ComputeBoW, Frame.cc:396), the
     new keyframe's covisibility row, its BA-adjusted pose, its observation
     row and the point counter — all still on the device."""
-    if has_depth:
-        raise NotImplementedError(
-            "stereo / RGB-D keyframes (add_depth_points) are not ported yet "
-            "(ROADMAP Queue 1 item 14)")
     m, k = insert_keyframe(cfg, m, frame, T, frame_id, kp_pt)
+    if has_depth:
+        m = add_depth_points(cfg, m, k, kp_depth)
     # `ba_iters` < 4 is the InterruptBA analogue (reference
     # LocalMapping.cc:615-631)
     m = _post_insert_body(cfg, m, k, ba_iters)

@@ -72,8 +72,9 @@ def _nvcc() -> str:
 def library_path() -> Path:
     """Build the kernels' shared library if its sources changed; return it.
 
-    The compiler's resource report (-Xptxas -v) is kept beside the library
-    as `<name>.log`."""
+    One nvcc per source, all started together, then one link.  The
+    compiler's resource report (-Xptxas -v) is kept beside the library as
+    `<name>.log`."""
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
     for name in SOURCES:
         h.update(name.encode())
@@ -83,13 +84,29 @@ def library_path() -> Path:
         return out
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     tmp = out.with_suffix(f".{os.getpid()}.tmp")
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp),
-           *[str(CSRC / s) for s in SOURCES]]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n"
-                           f"{' '.join(cmd)}\n{proc.stdout}{proc.stderr}")
-    out.with_suffix(".log").write_text(proc.stdout + proc.stderr)
+    nvcc = _nvcc()
+    compile_flags = [f for f in NVCC_FLAGS if f != "-shared"]
+    objs = [tmp.with_name(f"{tmp.name}.{Path(s).stem}.o") for s in SOURCES]
+    cmds = [[nvcc, *compile_flags, "-c", "-o", str(o), str(CSRC / s)]
+            for s, o in zip(SOURCES, objs)]
+    procs = [subprocess.Popen(c, stdout=subprocess.PIPE,
+                              stderr=subprocess.STDOUT, text=True)
+             for c in cmds]
+    logs = [p.communicate()[0] for p in procs]
+    cmds.append([nvcc, *NVCC_FLAGS, "-o", str(tmp), *map(str, objs)])
+    for cmd, proc, log in zip(cmds, procs, logs):
+        if proc.returncode != 0:
+            raise RuntimeError(f"nvcc failed ({proc.returncode}):\n"
+                               f"{' '.join(cmd)}\n{log}")
+    link = subprocess.run(cmds[-1], capture_output=True, text=True)
+    for o in objs:
+        o.unlink(missing_ok=True)
+    if link.returncode != 0:
+        raise RuntimeError(f"nvcc failed ({link.returncode}):\n"
+                           f"{' '.join(cmds[-1])}\n{link.stdout}"
+                           f"{link.stderr}")
+    out.with_suffix(".log").write_text("".join(logs) + link.stdout
+                                       + link.stderr)
     os.replace(tmp, out)
     return out
 

@@ -1,5 +1,5 @@
 """Pinhole camera with radial-tangential distortion (port of coslam_tpu/
-utils/camera.py: `undistort_pixels` and what it calls)."""
+utils/camera.py: `undistort_pixels` and what it calls, and `backproject`)."""
 
 from __future__ import annotations
 
@@ -43,3 +43,12 @@ def undistort_pixels(cam: CameraConfig, uv: torch.Tensor) -> torch.Tensor:
         return uv
     return normalized_to_pixel(
         cam, undistort_normalized(cam, pixel_to_normalized(cam, uv)))
+
+
+def backproject(cam: CameraConfig, uv: torch.Tensor,
+                depth: torch.Tensor) -> torch.Tensor:
+    """Pixels (..., 2) + depth (...) -> camera-frame points (..., 3)
+    (reference Frame::UnprojectStereo, Frame.cc:667)."""
+    x = (uv[..., 0] - cam.cx) / cam.fx
+    y = (uv[..., 1] - cam.cy) / cam.fy
+    return torch.stack([x * depth, y * depth, depth], dim=-1)

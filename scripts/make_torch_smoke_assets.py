@@ -37,7 +37,27 @@ Runs the JAX package (`coslam_tpu`) on the CPU:
      candidate, the expanded inlier count, s / R / t, keyframe poses and
      point positions after `correct_loop` and after `global_ba` on its
      result, and of the whole run the initialisation draws, the frame and keyframe that closed, the
-     per-frame poses and the ATE.
+     per-frame poses and the ATE;
+  6. stereo at KITTI width: `kitti_config()` (1241x376, 1000 features,
+     bf=386.1448) with K=64, P=16384, keyframe throttle 3, loop closing on,
+     60 frames of make_trajectory(60, seed=3) in make_scene(600, seed=3),
+     stereo pairs from render_stereo_frame with baseline bf / fx, through
+     `run_sequence(left, right_images=right)`; writes
+     `smoke_stereo_expected.npz`: frame 0's keypoints of both views and
+     their `match_stereo` result, the per-frame poses, inliers and keyframe
+     flags, the keyframe and point counts and the metric ATE (no scale
+     alignment);
+  7. RGB-D: the bench's camera (640x480, fx=400) with bf=48 (12 cm),
+     1000 features, K=64, P=16384, the same scene and trajectory with
+     render_depth, loop closing off; writes `smoke_rgbd_expected.npz`
+     (frame 0's keypoints and `rgbd_depth`, then as step 6);
+  8. the RGB-D run again for VOCAB_FRAMES frames with
+     LoopConfig(vocab_pretrained=False); writes `smoke_vocab_expected.npz`:
+     the `_n_added` milestones at which it retrained, and for the first the
+     descriptors of the keyframes it pooled (only those: the pool's other
+     rows are invalid and never read), their validity, the seed permutation
+     (`jax.random.permutation(PRNGKey(0), K * N)`), the trained words and
+     the database rows after the retrain.
 
 The workload is the bench's (bench.py:140-160: 640x480, 1000 features,
 max_keypoints=1024, make_scene(600, seed=3), make_trajectory(360, seed=3))
@@ -46,16 +66,18 @@ depend on host speed; the localization map uses the default capacity
 (K=256, P=32768), the mapping run the bench's (K=64, P=16384).
 
     JAX_PLATFORMS=cpu python scripts/make_torch_smoke_assets.py \
-        [--mapping-only | --reloc-only | --loop-only]
+        [--mapping-only | --reloc-only | --loop-only | --stereo-only |
+         --rgbd-only | --vocab-only]
 
 --mapping-only rebuilds steps 3 and 4, --reloc-only step 4 alone (it still
 runs step 3's mapping, without writing its file), --loop-only step 5 alone
-(~4 min).
+(~4 min), --stereo-only step 6, --rgbd-only step 7, --vocab-only step 8.
 """
 
 from __future__ import annotations
 
 import collections
+import dataclasses
 import os
 import sys
 import time
@@ -69,11 +91,16 @@ import jax  # noqa: E402
 import jax.numpy as jnp  # noqa: E402
 
 from coslam_tpu.config import (CameraConfig, ExtractorConfig,  # noqa: E402
-                               MapperConfig, SystemConfig, TrackerConfig)
+                               LoopConfig, MapperConfig, SystemConfig,
+                               TrackerConfig, kitti_config)
+from coslam_tpu.models import keyframe_db as jkdb  # noqa: E402
 from coslam_tpu.models import loop_closing as jlc  # noqa: E402
 from coslam_tpu.models import system as jsystem  # noqa: E402
 from coslam_tpu.ops import matching as jmatching  # noqa: E402
+from coslam_tpu.models.frame import build_frame  # noqa: E402
 from coslam_tpu.models.system import System  # noqa: E402
+from coslam_tpu.ops import orb as jorb  # noqa: E402
+from coslam_tpu.ops import stereo as jstereo  # noqa: E402
 from coslam_tpu.utils import checkpoint, evaluation, synthetic  # noqa: E402
 
 MAP_FRAMES = 80
@@ -84,6 +111,9 @@ RELOC_RETURN = tuple(range(28, 34))   # then these frames again, ids 2000 + i
 LOOP_FRAMES = 115                  # 1.25 laps: the revisit begins at frame 92
 LOOP_SEED = 5
 LOOP_SPLIT = 70                    # the resume checkpoint is taken here
+DEPTH_FRAMES = 60                  # stereo and RGB-D runs
+VOCAB_FRAMES = 30                  # the RGB-D run without a vocabulary
+RGBD_BF = 48.0                     # 12 cm at fx = 400
 ASSETS = os.path.join(ROOT, "coslam_tpu_torch", "assets")
 
 
@@ -102,6 +132,55 @@ def mapping_config() -> SystemConfig:
 
 def loop_config() -> SystemConfig:
     return smoke_config(MapperConfig(max_keyframes=96, max_points=16384))
+
+
+def stereo_config() -> SystemConfig:
+    return kitti_config(
+        mapper=MapperConfig(max_keyframes=64, max_points=16384),
+        tracker=TrackerConfig(mapper_latency_frames=3))
+
+
+def rgbd_config(loop: LoopConfig = LoopConfig()) -> SystemConfig:
+    cfg = mapping_config()
+    return cfg.replace(camera=dataclasses.replace(cfg.camera, bf=RGBD_BF),
+                       sensor="rgbd", loop=loop)
+
+
+def depth_frames(cfg: SystemConfig, n: int = DEPTH_FRAMES):
+    """(left images, right images or depth maps, ground-truth poses) of the
+    stereo / RGB-D workloads."""
+    scene = synthetic.make_scene(600, seed=3)
+    poses = synthetic.make_trajectory(DEPTH_FRAMES, seed=3).poses_cw[:n]
+    cam = cfg.camera
+    if cfg.sensor == "stereo":
+        pairs = [synthetic.render_stereo_frame(cam, T, scene,
+                                               baseline=cam.bf / cam.fx)
+                 for T in poses]
+        return (np.stack([p[0] for p in pairs]),
+                np.stack([p[1] for p in pairs]), poses)
+    return (synthetic.render_sequence(cam, synthetic.Trajectory(poses),
+                                      scene),
+            np.stack([synthetic.render_depth(cam, T, scene) for T in poses]),
+            poses)
+
+
+class RetrainRecordingDB(jkdb.KeyFrameDatabase):
+    """The reference database, keeping its state around each vocabulary
+    retrain: the map it was given, the rows and words before and after."""
+
+    def __init__(self, *a, **kw):
+        super().__init__(*a, **kw)
+        self.retrains = []
+
+    def maybe_retrain(self, m):
+        before = dict(n_added=self._n_added, bows=self.bows.copy(),
+                      has=self.has.copy(), vocab=np.asarray(self.vocab),
+                      version=self._version, map=m)
+        super().maybe_retrain(m)
+        if self._version != before["version"]:
+            before.update(words=np.asarray(self.vocab),
+                          bows_after=self.bows.copy())
+            self.retrains.append(before)
 
 
 class DrawRecordingSystem(System):
@@ -458,8 +537,109 @@ def loop_reference() -> None:
         gt_T=gt.astype(np.float32), ate=np.float64(ate))
 
 
+def _kps_arrays(prefix: str, kps) -> dict:
+    return {f"{prefix}_{k}": np.asarray(kps[k])
+            for k in ("uv", "level", "desc", "valid")}
+
+
+def depth_reference(sensor: str) -> None:
+    """Step 6 (stereo) or 7 (RGB-D)."""
+    t0 = time.perf_counter()
+    cfg = stereo_config() if sensor == "stereo" else rgbd_config()
+    left, aux, poses = depth_frames(cfg)
+    f0 = build_frame(jnp.asarray(left[0]), cfg)
+    kpsL = {"uv": f0.uv, "level": f0.level, "desc": f0.desc,
+            "valid": f0.valid}
+    extra = _kps_arrays("kpl", kpsL)
+    if sensor == "stereo":
+        kpsR = jorb.extract(jnp.asarray(aux[0]), cfg.extractor)
+        extra.update(_kps_arrays("kpr", kpsR))
+        sd = jstereo.match_stereo(cfg.camera, cfg.extractor, cfg.matcher,
+                                  kpsL, kpsR, jnp.asarray(left[0]),
+                                  jnp.asarray(aux[0]))
+        s = System(cfg)
+        s.run_sequence(left, right_images=aux)
+    else:
+        sd = jstereo.rgbd_depth(cfg.camera, f0.uv, f0.valid,
+                                jnp.asarray(aux[0]))
+        s = System(cfg, enable_loop_closing=False)
+        s.run_sequence(left, depths=aux)
+    info = s.shutdown()
+    ids, T = s.trajectory_poses()
+    lost = sum(1 for st in s.stats if st.get("lost"))
+    assert lost == 0 and s.state == "OK", f"the reference run lost {lost}"
+    ate = evaluation.ate_rmse(evaluation.trajectory_xyz(T),
+                              evaluation.trajectory_xyz(poses[ids]),
+                              with_scale=False)
+    n_kf = int(np.asarray(s.map.kf_valid).sum())
+    n_pt = int(np.asarray(s.map.pt_valid).sum())
+    kf_frames = [st["frame"] for st in s.stats if st.get("keyframe")]
+    print(f"{sensor} frames 0-{DEPTH_FRAMES - 1}: initialised at frame "
+          f"{ids[0]}, {len(ids)} tracked, lost {lost}, {len(kf_frames)} "
+          f"keyframes inserted, {n_kf} valid, {n_pt} points, loops "
+          f"{s.n_loops_closed}, metric ATE {ate:.5f}, chunk discard rate "
+          f"{info['chunk_discard_rate']}; frame 0: "
+          f"{int(sd.valid.sum())} keypoints with depth "
+          f"({time.perf_counter() - t0:.1f} s)")
+    np.savez_compressed(
+        os.path.join(ASSETS, f"smoke_{sensor}_expected.npz"),
+        frame_ids=np.asarray(ids, np.int32), T=T.astype(np.float32),
+        n_inliers=np.asarray([st["inliers"] for st in s.stats], np.int32),
+        kf_frames=np.asarray(kf_frames, np.int32),
+        n_keyframes=np.int32(n_kf), n_points=np.int32(n_pt),
+        n_loops=np.int32(s.n_loops_closed), ate=np.float64(ate),
+        chunk_discard_rate=np.float64(info["chunk_discard_rate"]),
+        sd_u_right=np.asarray(sd.u_right), sd_depth=np.asarray(sd.depth),
+        sd_valid=np.asarray(sd.valid), **extra)
+
+
+def vocab_reference() -> None:
+    """Step 8."""
+    t0 = time.perf_counter()
+    cfg = rgbd_config(LoopConfig(vocab_pretrained=False))
+    left, aux, _ = depth_frames(cfg, VOCAB_FRAMES)
+    s = System(cfg, enable_loop_closing=False)
+    s.db = RetrainRecordingDB(cfg)
+    s.run_sequence(left, depths=aux)
+    s.shutdown()
+    recs = s.db.retrains
+    assert recs, "the reference run did not retrain"
+    first = recs[0]
+    m = first["map"]
+    K, N = m.kf_obs_pt.shape
+    kf = np.nonzero(np.asarray(m.kf_valid))[0]
+    ok = np.asarray(m.kf_kp_valid & m.kf_valid[:, None])
+    perm = np.asarray(jax.random.permutation(jax.random.PRNGKey(0), K * N))
+    print(f"vocabulary: retrained at {[r['n_added'] for r in recs]} added "
+          f"keyframes in {VOCAB_FRAMES} frames; the first pool holds "
+          f"{int(ok.sum())} descriptors of keyframes {list(kf)} "
+          f"({time.perf_counter() - t0:.1f} s)")
+    np.savez_compressed(
+        os.path.join(ASSETS, "smoke_vocab_expected.npz"),
+        milestones=np.asarray([r["n_added"] for r in recs], np.int32),
+        K=np.int32(K), N=np.int32(N), kf=kf.astype(np.int32),
+        desc=np.asarray(m.kf_desc)[kf], kp_valid=ok[kf],
+        perm=perm.astype(np.int32), words=first["words"],
+        rows=first["bows_after"][first["has"]],
+        row_kf=np.nonzero(first["has"])[0].astype(np.int32),
+        n_keyframes=np.int32(np.asarray(s.map.kf_valid).sum()))
+
+
+DEPTH_ASSETS = ("smoke_stereo_expected.npz", "smoke_rgbd_expected.npz",
+                "smoke_vocab_expected.npz")
+
+
 def main() -> int:
     os.makedirs(ASSETS, exist_ok=True)
+    depth_only = {"--stereo-only": lambda: depth_reference("stereo"),
+                  "--rgbd-only": lambda: depth_reference("rgbd"),
+                  "--vocab-only": vocab_reference}
+    for i, (flag, fn) in enumerate(depth_only.items()):
+        if flag in sys.argv:
+            fn()
+            p = os.path.join(ASSETS, DEPTH_ASSETS[i])
+            print(f"{p}: {os.path.getsize(p)} bytes")
+            return 0
     reloc_only = "--reloc-only" in sys.argv
     loop_only = "--loop-only" in sys.argv
     if not loop_only:
@@ -475,10 +655,13 @@ def main() -> int:
                         seq, poses)
     if loop_only or len(sys.argv) == 1:
         loop_reference()
+    if len(sys.argv) == 1:
+        for fn in depth_only.values():
+            fn()
     for name in ("smoke_map.npz", "smoke_expected.npz",
                  "smoke_mapping_expected.npz", "smoke_reloc_expected.npz",
                  "smoke_loop_map.npz", "smoke_loop_resume.npz",
-                 "smoke_loop_expected.npz"):
+                 "smoke_loop_expected.npz") + DEPTH_ASSETS:
         p = os.path.join(ASSETS, name)
         print(f"{p}: {os.path.getsize(p)} bytes")
     return 0

@@ -16,6 +16,11 @@ closing call alone on the saved map (smoke_loop_map.npz): device busy
 against the call's wall time, i.e. how much of a closure is host dispatch,
 and its kernel count.  The whole loop run is not put under the profiler: its
 million kernel events take the profiler longer than a quarter of an hour.
+With --stereo / --rgbd: chip_smoke.py's phase 7 / 8 run (60 frames, KITTI
+stereo at 1241x376 / RGB-D at 640x480, 1000 features, K=64 / P=16384),
+with the device time of the stereo functions (`match_stereo` with
+`_sad_subpixel` inside it, `rgbd_depth`), each under a
+torch.profiler.record_function range.
 
 Each path runs once to warm up, once unprofiled, then once under
 torch.profiler, and the script prints:
@@ -27,7 +32,8 @@ torch.profiler, and the script prints:
   * the count of host-side sync points the profiler saw (stream
     synchronizations, memcpys, .item() calls).
 
-    python3 scripts/profile_torch_slice.py [--mapping | --loop]
+    python3 scripts/profile_torch_slice.py [--mapping | --loop | --stereo |
+                                            --rgbd]
 """
 
 from __future__ import annotations
@@ -44,9 +50,41 @@ import torch
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 sys.path.insert(0, ROOT)
 
-from chip_smoke import (ASSETS, LOC_FRAMES, LOOP_FRAMES,  # noqa: E402
-                        LOOP_SEED, MAPPING_FRAMES, loop_config,
-                        mapping_config, saved_map_closer, smoke_config)
+from chip_smoke import (ASSETS, DEPTH_FRAMES, LOC_FRAMES,  # noqa: E402
+                        LOOP_FRAMES, LOOP_SEED, MAPPING_FRAMES, depth_config,
+                        depth_frames, loop_config, mapping_config,
+                        saved_map_closer, smoke_config)
+
+STEREO_RANGES = ("match_stereo", "_sad_subpixel", "rgbd_depth")
+
+
+def depth_runner(sensor: str):
+    """run() for the stereo / RGB-D path, its stereo functions wrapped in
+    profiler ranges."""
+    from torch.profiler import record_function
+
+    from coslam_tpu_torch.models.system import System
+    from coslam_tpu_torch.ops import stereo
+
+    for name in STEREO_RANGES:
+        def ranged(*a, _fn=getattr(stereo, name), _name=name, **kw):
+            with record_function(_name):
+                return _fn(*a, **kw)
+        setattr(stereo, name, ranged)
+    cfg = depth_config(sensor)
+    left, aux, _ = depth_frames(cfg, DEPTH_FRAMES)
+    kw = {"right_images" if sensor == "stereo" else "depths": aux}
+
+    def run():
+        s = System(cfg, device="cuda",
+                   enable_loop_closing=sensor == "stereo")
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        s.run_sequence(left, **kw)
+        torch.cuda.synchronize()
+        return time.perf_counter() - t0
+
+    return run, None, DEPTH_FRAMES
 
 
 def mapping_runner(scene, traj):
@@ -248,6 +286,9 @@ def main() -> int:
         run, split, n = mapping_runner(scene, traj)
     elif "--loop" in sys.argv:
         run, split, n = loop_runner()
+    elif "--stereo" in sys.argv or "--rgbd" in sys.argv:
+        run, split, n = depth_runner(
+            "stereo" if "--stereo" in sys.argv else "rgbd")
     run()
     plain_wall = run()
     if split is not None:
@@ -277,6 +318,25 @@ def main() -> int:
                      sum(e.count for e in mine))
         print(f"kernel {tag}: {us / 1e3:.3f} ms in {count} launches "
               f"({us / max(count, 1):.2f} us each, {count / n:.2f} per frame)")
+    for e in events:
+        if e.key in STEREO_RANGES:
+            dev = getattr(e, "device_time_total", None)
+            if dev is None:
+                dev = e.cuda_time_total
+            per = dev / max(e.count, 1) / 1e3
+            if e.cpu_time_total > 0:
+                # the host-side range: the device time of its kernels
+                print(f"range {e.key}: {e.count} calls, kernels {dev / 1e3:.3f}"
+                      f" ms of device time ({per:.4f} ms a call), host "
+                      f"{e.cpu_time_total / 1e3:.3f} ms "
+                      f"({e.cpu_time_total / max(e.count, 1) / 1e3:.4f} ms "
+                      f"a call)")
+            else:
+                # its annotation on the device timeline: first kernel's
+                # start to last kernel's end, idle gaps included
+                print(f"range {e.key}: {e.count} calls, span on the device "
+                      f"timeline {dev / 1e3:.3f} ms ({per:.4f} ms a call, "
+                      f"idle gaps included)")
     print(events.table(sort_by="self_cuda_time_total", row_limit=25,
                        max_name_column_width=60))
     return 0

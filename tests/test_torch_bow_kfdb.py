@@ -12,6 +12,7 @@ import torch
 
 from coslam_tpu import config as jcfg
 from coslam_tpu.models import keyframe_db as jkdb
+from coslam_tpu.models import map_state as jms
 from coslam_tpu.ops import bow as jbow
 from coslam_tpu_torch import config as tcfg
 from coslam_tpu_torch.models import keyframe_db as tkdb
@@ -104,24 +105,48 @@ def test_database_add_remap_grow_and_scores(rng):
 
 def test_retraining_raises_only_where_the_reference_retrains(rng):
     """Without a pretrained vocabulary the reference retrains at
-    vocab_retrain_at milestones; the port raises exactly there."""
+    vocab_retrain_at milestones; the port retrains exactly there (the
+    retrain itself is held to the reference in tests/test_torch_vocab.py),
+    and a pretrained vocabulary is never retrained."""
     loop = tcfg.LoopConfig(vocab_pretrained=False, vocab_words=64)
     cfg = tcfg.SystemConfig(
         extractor=tcfg.ExtractorConfig(max_keypoints=512),
         mapper=tcfg.MapperConfig(max_keyframes=8, max_points=64), loop=loop)
+    jconf = jcfg.SystemConfig(
+        extractor=jcfg.ExtractorConfig(max_keypoints=512),
+        mapper=jcfg.MapperConfig(max_keyframes=8, max_points=64),
+        loop=jcfg.LoopConfig(vocab_pretrained=False, vocab_words=64))
     db = tkdb.KeyFrameDatabase(cfg, device="cpu")
+    jdb = jkdb.KeyFrameDatabase(jconf)
     assert not db._external_vocab and db.n_words == 64
+    desc = rng.integers(0, 2 ** 32, (8, 512, 8), dtype=np.uint32)
     m = tms.empty_map(cfg, device="cpu")
     m = m._replace(kf_valid=torch.ones(8, dtype=torch.bool),
-                   kf_kp_valid=torch.ones((8, 512), dtype=torch.bool))
-    for k in range(3):
+                   kf_kp_valid=torch.ones((8, 512), dtype=torch.bool),
+                   kf_desc=torch.from_numpy(desc.view(np.int32)))
+    jm = jms.empty_map(jconf)
+    jm = jm._replace(kf_valid=jnp.ones(8, bool),
+                     kf_kp_valid=jnp.ones((8, 512), bool),
+                     kf_desc=jnp.asarray(desc))
+    retrained, j_retrained = [], []
+    for k in range(5):
         db.add_row(k, np.zeros(64, np.float32))
-        db.maybe_retrain(m)            # 1..3 added: no milestone
-    db.add_row(3, np.zeros(64, np.float32))
-    with pytest.raises(NotImplementedError, match="item 11"):
-        db.maybe_retrain(m)            # 4 added: the reference retrains
+        jdb.add_row(k, np.zeros(64, np.float32))
+        before = (db.vocab.clone(), np.asarray(jdb.vocab).copy())
+        db.maybe_retrain(m)
+        jdb.maybe_retrain(jm)
+        if not torch.equal(db.vocab, before[0]):
+            retrained.append(k + 1)
+        if not np.array_equal(np.asarray(jdb.vocab), before[1]):
+            j_retrained.append(k + 1)
+    assert retrained == j_retrained == [4]      # keyframes added
+    # the rows stored before the milestone were recomputed under the new
+    # words
+    assert np.abs(db.bows[:4].sum(1) - 1).max() < 1e-5
     pre = tkdb.KeyFrameDatabase(tcfg.SystemConfig(
         mapper=tcfg.MapperConfig(max_keyframes=8)), device="cpu")
+    vocab0 = pre.vocab.clone()
     for k in range(4):
         pre.add_row(k, np.zeros(pre.n_words, np.float32))
     pre.maybe_retrain(m)               # pretrained: never retrains
+    assert torch.equal(pre.vocab, vocab0)

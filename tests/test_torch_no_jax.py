@@ -16,7 +16,8 @@ SLICE = ["config.py", "utils/geometry.py", "utils/camera.py",
          "ops/bow.py", "ops/twoview.py", "optim/ba.py",
          "models/keyframe_db.py", "models/loop_closing.py",
          "models/local_mapping.py", "models/compaction.py", "utils/io.py",
-         "ops/sim3.py", "ops/pnp.py", "optim/pose_graph.py"]
+         "ops/sim3.py", "ops/pnp.py", "optim/pose_graph.py",
+         "ops/stereo.py"]
 
 LOOP_MODULES = ["coslam_tpu_torch.ops.sim3",
                 "coslam_tpu_torch.optim.pose_graph",

@@ -127,10 +127,12 @@ def test_track_chunk_matches_reference(saved_map):
 
 
 def test_unported_paths_raise():
-    """What is still unported raises, naming its ROADMAP item: the
-    observation-sharded BA (16) and stereo / RGB-D (14).  Loop closing no
-    longer raises: the System builds its LoopCloser.  A frame that tracks
-    nothing does not raise either: the System goes LOST and dead-reckons."""
+    """What is still unported raises, naming its ROADMAP item: only the
+    observation-sharded BA (16).  Loop closing no longer raises: the System
+    builds its LoopCloser.  A frame that tracks nothing does not raise
+    either: the System goes LOST and dead-reckons.  Nor do the depth
+    sensors: a mono System handed depth images runs the RGB-D path's
+    driver."""
     from coslam_tpu_torch.optim import ba as tba
     with pytest.raises(NotImplementedError, match="item 16"):
         tba.solve_body(None, None, 1, 1, 5.991, True, "obs")
@@ -147,5 +149,5 @@ def test_unported_paths_raise():
     np.testing.assert_array_equal(T, np.eye(4, dtype=np.float32))
     assert ts.velocity is None and int(ts.last_kp_pt.max()) == -1
     assert ts.shutdown()["relocalizations"] == 0
-    with pytest.raises(NotImplementedError, match="item 14"):
-        ts.run_sequence([img], depths=[img])
+    ts.run_sequence([img], depths=[np.zeros((480, 640), np.float32)])
+    assert ts.state == "LOST" and ts.stats[-1]["lost"]
