@@ -196,6 +196,37 @@ lines):
      `collective_bytes_per_iter`, ms per exchange round, bytes per block
      and each agent's frames/s.
 
+ 12. datasets (the dataset front end: utils/io.py's loaders and layout
+     writers, `cli.run_dataset`, viz/): (a) `dataset_layouts` writes
+     tum/ (tum_fr1_config's 640x480 camera, distorted; rgb as 8-bit RGB
+     with R = G = B, 16-bit depth x 5000 at stamps jittered within +-5 ms,
+     the lists and ground truth under their comment lines), kitti/ (phase
+     7's 1241x376 stereo pairs, sequence 00) and euroc/ (euroc_config's
+     752x480 camera, distorted, with its sensor.yaml), DATASET_FRAMES
+     frames each of make_trajectory(60, seed=3) in make_scene(600,
+     seed=3); (b) every file's sha256 equal to the one the JAX run read
+     (coslam_tpu_torch/assets/smoke_dataset_expected.npz), every image and
+     depth map decoded bit-equal to the array written, timestamps and depth
+     associations exact, ground truth within 1e-6, the EuRoC camera parsed
+     equal; (c) `cli.run_dataset` for mono on tum, rgbd on tum, stereo on
+     kitti and mono on euroc (loop closing on, as the CLI has it), with a
+     `prepare` that pins the throttle at 3 and the mapper cycle
+     (MAPPER_CYCLE_S), under deterministic algorithms: poses and keyframes
+     bit-equal to `System.run_sequence` on the same arrays in memory under
+     the same pins, and against the JAX CLI's driver on the same directory
+     the initialisation frame (within MAPPING_INIT_WINDOW for mono, equal
+     for the depth sensors), 0 lost, keyframes made within max(2, 15%), the
+     CLI's ATE at most 0.02 (mono, scale-aligned) or 0.01 (metric) above
+     the JAX run's, K1 at least once a frame (twice for stereo), K2 and K3
+     launched; (d) `cli.main` with the user's own command line (`mono
+     --dataset tum --root DIR --out FILE`, unpinned): exit 0, the report
+     lines, one TUM row per tracked frame at the dataset's stamps; then
+     `rgbd --per-frame --viz DIR --viz-every 5` over VIZ_FRAMES frames
+     writes frame_*.png and map_*.png.  Prints frames/s of each run from
+     files and from memory (medians of DATASET_TIMED_RUNS plain runs each,
+     in turns), host ms per decode, and decodes per input image (frames
+     tracked again after a chunk cut are read again).
+
 The second-to-last line is a JSON object with each kernel's launches (in
 the mapping run; `launches_by_path` and `launches_per_frame` have every
 path's run), error, times and bound.  K2's and K3's headline numbers are those of
@@ -249,7 +280,9 @@ LOOP_ATE_BAR = 0.04
 # take 1.0 s.  The loop run parts from its JAX run at frame 1 and cannot
 # follow it: it takes the System's own prior of 0.1 s, 3 frames at 30
 # frames/s, inside the pinned throttle (at 1.0 s it drifted to ATE 0.186).
-MAPPER_CYCLE_S = {"loop": 0.1, "stereo": 1.0, "rgbd": 1.0, "coop": 0.1}
+MAPPER_CYCLE_S = {"loop": 0.1, "stereo": 1.0, "rgbd": 1.0, "coop": 0.1,
+                  "tum_mono": 0.1, "tum_rgbd": 1.0, "kitti_stereo": 1.0,
+                  "euroc_mono": 0.1}
 TPU_KERNELS = "coslam_tpu/ops/pallas_kernels.py"
 # The JAX run's initialisation frame is decided by f32 rounding: at its
 # frame 13 the winning F hypothesis leads the runner-up by less than the
@@ -292,7 +325,8 @@ NEEDS = (["coslam_tpu_torch/__init__.py", "coslam_tpu/assets/vocab.npz"]
              "smoke_loop_expected", "smoke_stereo_expected",
              "smoke_rgbd_expected", "smoke_vocab_expected",
              "smoke_coop_merge", "smoke_coop_expected",
-             "smoke_multichip_expected", "smoke_multichip_state")])
+             "smoke_multichip_expected", "smoke_multichip_state",
+             "smoke_dataset_expected")])
 # Published peaks of one H100 SXM: f32 outside the tensor cores (integer
 # operations are counted at the same rate) and device memory.
 PEAK_OPS_PER_S = 67e12
@@ -2515,6 +2549,332 @@ def _jax_state_partitioned(card, cam, mesh):
           "differs from the JAX package's: " + lines[1])
 
 
+DATASET_FRAMES = 40                # phase 12: the first 40 of the 60
+DATASET_TIMED_RUNS = 3             # phase 12: frames/s, median
+DATASET_RUNS = (("mono", "tum"), ("rgbd", "tum"), ("stereo", "kitti"),
+                ("mono", "euroc"))
+TUM_T0 = 1305031102.175304         # stamps in the style of TUM fr1's
+EUROC_NS0 = 1403636579763555584    # and of EuRoC MH_01's
+TUM_DEPTH_FACTOR = 5000.0
+# phase 12: bars against the JAX run of the same directory
+DATASET_KF_FRAC = 0.15             # keyframes within max(2, 15%)
+DATASET_ATE_ABOVE = {"mono": 0.02, "rgbd": 0.01, "stereo": 0.01}
+VIZ_FRAMES = 10                    # phase 12 (d): the viewer's run
+
+
+def dataset_layouts(root: str, frames: int = DATASET_FRAMES) -> dict:
+    """Phase 12's three dataset directories under `root`, written with the
+    port's layout writers (utils/io.py): the first `frames` of
+    make_trajectory(60, seed=3) in make_scene(600, seed=3), each at its
+    preset's full
+    width: tum/ (tum_fr1_config's camera, distorted: rgb as 8-bit RGB with
+    R = G = B, depth as 16-bit metres x 5000 at stamps jittered within +-5
+    ms), kitti/ (phase 7's stereo workload at 1241x376, sequence 00) and
+    euroc/ (euroc_config's camera, distorted, with its sensor.yaml).  Also
+    written by scripts/make_torch_smoke_assets.py for the JAX package's
+    runs.  Returns, per directory, the arrays a loader must decode and the
+    stamps, and the ground-truth camera-to-world poses."""
+    from coslam_tpu_torch.config import euroc_config, tum_fr1_config
+    from coslam_tpu_torch.utils import io as cio
+    from coslam_tpu_torch.utils import synthetic
+
+    scene = synthetic.make_scene(600, seed=3)
+    poses = synthetic.make_trajectory(DEPTH_FRAMES, seed=3).poses_cw[:frames]
+    T_wc = np.linalg.inv(poses.astype(np.float64))
+    rng = np.random.default_rng(3)
+    out = {"poses_wc": T_wc}
+
+    cam = tum_fr1_config().camera
+    gray = np.stack([synthetic.render_frame(cam, T, scene, distort=True)
+                     for T in poses])
+    raw = np.stack([np.clip(np.round(synthetic.render_depth(
+        cam, T, scene, distort=True) * TUM_DEPTH_FACTOR), 0, 65535)
+        .astype(np.uint16) for T in poses])
+    ts = [float(f"{TUM_T0 + i / cam.fps:.6f}") for i in range(frames)]
+    dts = [float(f"{t + rng.uniform(-0.005, 0.005):.6f}") for t in ts]
+    cio.write_tum_rgbd(os.path.join(root, "tum"), ts,
+                       np.repeat(gray[..., None], 3, axis=3), raw, dts, T_wc)
+    out["tum"] = {"left": gray, "depth_raw": raw, "ts": ts, "dts": dts}
+
+    left, right, _ = depth_frames(depth_config("stereo"), frames)
+    times = [float(f"{i / 10.0:.6e}") for i in range(frames)]
+    cio.write_kitti(os.path.join(root, "kitti"), times, left, right, T_wc)
+    out["kitti"] = {"left": left, "right": right, "ts": times}
+
+    cam = euroc_config().camera
+    eimg = np.stack([synthetic.render_frame(cam, T, scene, distort=True)
+                     for T in poses])
+    ns = [EUROC_NS0 + 50_000_000 * i for i in range(frames)]
+    cio.write_euroc(os.path.join(root, "euroc"), ns, eimg, None, cam, T_wc)
+    out["euroc"] = {"left": eimg, "ts": [n * 1e-9 for n in ns], "ns": ns,
+                    "camera": cam}
+    return out
+
+
+def dataset_hashes(root: str) -> dict:
+    """{path relative to root: sha256} of every file under `root`."""
+    import hashlib
+    out = {}
+    for d, _, names in os.walk(root):
+        for n in names:
+            p = os.path.join(d, n)
+            with open(p, "rb") as f:
+                out[os.path.relpath(p, root)] = hashlib.sha256(
+                    f.read()).hexdigest()
+    return dict(sorted(out.items()))
+
+
+def _pin(key: str, latency: int = 3):
+    """prepare(slam) for cli.run_dataset: the keyframe throttle at
+    `latency` frames in place of the preset's AUTO, and the mapper cycle at
+    MAPPER_CYCLE_S[key] (pin_mapper_cycle)."""
+    import dataclasses
+
+    def prepare(slam):
+        slam.cfg = slam.cfg.replace(tracker=dataclasses.replace(
+            slam.cfg.tracker, mapper_latency_frames=latency))
+        pin_mapper_cycle(slam, MAPPER_CYCLE_S[key])
+    return prepare
+
+
+def check_decoded(root: str, lay: dict, ex) -> str:
+    """Phase 12 (b): the loaders read back what dataset_layouts wrote."""
+    from coslam_tpu_torch.utils import io as cio
+
+    hashes = dataset_hashes(root)
+    want = dict(zip(ex["files"].tolist(), ex["sha256"].tolist()))
+    check(hashes == want, "dataset files differ from those the JAX run read: "
+          + ", ".join(sorted(k for k in set(hashes) | set(want)
+                             if hashes.get(k) != want.get(k)))[:400])
+    T_wc = lay["poses_wc"]
+    n_img = 0
+    for ds in ("tum", "kitti", "euroc"):
+        d = os.path.join(root, ds)
+        seq = (cio.load_tum_rgbd(d) if ds == "tum" else cio.load_kitti(d)
+               if ds == "kitti" else cio.load_euroc(d))
+        ref = lay[ds]
+        check([f.timestamp for f in seq.frames] == list(ref["ts"]),
+              f"{ds}: timestamps differ")
+        check(np.array_equal(seq.gt_timestamps, np.asarray(ref["ts"])),
+              f"{ds}: ground-truth timestamps differ")
+        gt_err = float(np.abs(seq.gt_poses_wc - T_wc).max())
+        check(gt_err <= 1e-6, f"{ds}: ground truth off by {gt_err}")
+        for i, fr in enumerate(seq.frames):
+            check(np.array_equal(cio.load_image(fr.rgb_path), ref["left"][i]),
+                  f"{ds}: image {i} decoded differently")
+            n_img += 1
+            if ds == "tum":
+                check(fr.depth_path == os.path.join(
+                    d, f"depth/{ref['dts'][i]:.6f}.png"),
+                    f"tum: frame {i} associated with {fr.depth_path}")
+                raw = cio.load_depth(fr.depth_path, 1.0)
+                check(np.array_equal(raw, ref["depth_raw"][i]),
+                      f"tum: depth {i} decoded differently")
+                n_img += 1
+            if ds == "kitti":
+                check(np.array_equal(cio.load_image(fr.right_path),
+                                     ref["right"][i]),
+                      f"kitti: right image {i} decoded differently")
+                n_img += 1
+        if ds == "euroc":
+            check(seq.camera == ref["camera"],
+                  f"euroc: sensor.yaml parsed as {seq.camera}")
+    return (f"{len(hashes)} files equal to the JAX run's by sha256, "
+            f"{n_img} images and depth maps decoded bit-equal, timestamps "
+            f"and depth associations exact, ground truth within {gt_err:.1e}")
+
+
+def decode_ms(lay_root: str) -> str:
+    """Host ms per decoded frame of each kind (PNG decode and, for TUM's
+    RGB, the gray conversion), over the first 20 frames."""
+    from coslam_tpu_torch.utils import io as cio
+    out = []
+    for name, ds, kind in (("tum rgb", "tum", "rgb"),
+                           ("tum depth", "tum", "depth"),
+                           ("kitti", "kitti", "sequences/00/image_0"),
+                           ("euroc", "euroc", "mav0/cam0/data")):
+        d = os.path.join(lay_root, ds, kind)
+        paths = sorted(os.path.join(d, n) for n in os.listdir(d))[:20]
+        t0 = time.perf_counter()
+        for p in paths:
+            if kind == "depth":
+                cio.load_depth(p, TUM_DEPTH_FACTOR)
+            else:
+                cio.load_image(p)
+        out.append(f"{name} {1e3 * (time.perf_counter() - t0) / len(paths):.2f}")
+    return ", ".join(out)
+
+
+def phase_datasets(card: str):
+    """Phase 12: the dataset front end (utils/io.py, cli.run_dataset, viz)
+    from files, on the card."""
+    import io as pyio
+
+    from coslam_tpu_torch import cli
+    from coslam_tpu_torch.models.system import System
+    from coslam_tpu_torch.ops import cuda_kernels as ck
+
+    ex = np.load(os.path.join(ASSETS, "smoke_dataset_expected.npz"))
+    total = {k: 0 for k in ck.LAUNCHES}
+    n_frames = 0
+    with tempfile.TemporaryDirectory(prefix="coslam_datasets_") as root:
+        t0 = time.perf_counter()
+        lay = dataset_layouts(root, DATASET_FRAMES)
+        write_s = time.perf_counter() - t0
+        print(f"[datasets] wrote tum/, kitti/, euroc/ ({DATASET_FRAMES} "
+              f"frames each) in {write_s:.1f} s; "
+              f"{check_decoded(root, lay, ex)}; host ms per decoded frame: "
+              f"{decode_ms(root)} ({card})", flush=True)
+
+        quiet = contextlib.redirect_stdout(pyio.StringIO())
+        for mode, ds in DATASET_RUNS:
+            key = f"{ds}_{mode}"
+            d = os.path.join(root, ds)
+            ref = lay[ds]
+            kw = ({"depths": [r.astype(np.float32) / TUM_DEPTH_FACTOR
+                              for r in ref["depth_raw"]]}
+                  if mode == "rgbd" else
+                  {"right_images": ref["right"]} if mode == "stereo" else {})
+
+            def from_files():
+                with quiet:
+                    return cli.run_dataset(mode, ds, d, prepare=_pin(key),
+                                           device=DEV)
+
+            def from_memory(cfg):
+                s = System(cfg, device=DEV)
+                pin_mapper_cycle(s, MAPPER_CYCLE_S[key])
+                s.run_sequence(ref["left"], timestamps=ref["ts"], **kw)
+                return s
+
+            # the gated pair: deterministic algorithms, the cycle pinned
+            torch.cuda.synchronize()
+            ck.reset_launch_counts()
+            with DeterministicAlgorithms():
+                res = from_files()
+                torch.cuda.synchronize()
+            launches = dict(ck.LAUNCHES)
+            slam = res["slam"]
+            with DeterministicAlgorithms():
+                mem = from_memory(slam.cfg)
+            ids, T = res["ids"], res["poses"]
+            m_ids, m_T = mem.trajectory_poses()
+            kf = [st["frame"] for st in slam.stats if st.get("keyframe")]
+            m_kf = [st["frame"] for st in mem.stats if st.get("keyframe")]
+            same = list(ids) == list(m_ids) and np.array_equal(T, m_T)
+            check(same and kf == m_kf and int(slam.map.kf_valid.sum())
+                  == int(mem.map.kf_valid.sum()),
+                  f"{key}: from files {len(ids)} frames, keyframes {kf}; "
+                  f"from memory {len(m_ids)}, {m_kf}; max pose difference "
+                  + (f"{np.abs(T - m_T).max():.3e}"
+                     if T.shape == m_T.shape and T.size else "n/a"))
+
+            lost = sum(1 for st in slam.stats if st.get("lost"))
+            # the initialisation frame: a monocular run's second tracked
+            # frame (the first is its reference), a depth sensor's first
+            at = 1 if mode == "mono" else 0
+            j_init = int(ex[f"{key}_ids"][at])
+            init = int(ids[at]) if len(ids) > at else -1
+            made, j_made = len(kf) + 1, len(ex[f"{key}_kf_frames"]) + 1
+            ate, j_ate = res["ate"], float(ex[f"{key}_ate"])
+            check(init >= 0 and (abs(init - j_init) <= MAPPING_INIT_WINDOW
+                                 if mode == "mono" else init == j_init),
+                  f"{key}: initialised at {init}, JAX run at {j_init}")
+            check(lost == 0 and len(ex[f"{key}_lost"]) == 0,
+                  f"{key}: {lost} lost frames (JAX {len(ex[f'{key}_lost'])})")
+            check(abs(made - j_made) <= max(2, DATASET_KF_FRAC * j_made),
+                  f"{key}: {made} keyframes made, JAX run {j_made}")
+            check(ate is not None and bool(np.isfinite(T).all())
+                  and ate <= j_ate + DATASET_ATE_ABOVE[mode],
+                  f"{key}: ATE {ate} against the JAX run's {j_ate}")
+            k1_per_frame = 2 if mode == "stereo" else 1
+            check(launches["fast_score_nms"] >= k1_per_frame * DATASET_FRAMES
+                  and launches["masked_match"] > 0
+                  and launches["pose_opt_lm"] > 0,
+                  f"{key}: launches {launches}")
+            for k in total:
+                total[k] += launches[k]
+            n_frames += DATASET_FRAMES
+
+            # timed: plain runs (the cycle pinned), from files and from
+            # memory in turns
+            fps = {"files": [], "memory": []}
+            decodes = []
+            for _ in range(DATASET_TIMED_RUNS):
+                for src in ("files", "memory"):
+                    torch.cuda.synchronize()
+                    t1 = time.perf_counter()
+                    if src == "files":
+                        r = from_files()
+                        decodes.append((r["decodes"], r["decode_s"]))
+                    else:
+                        from_memory(slam.cfg)
+                    torch.cuda.synchronize()
+                    fps[src].append(DATASET_FRAMES
+                                    / (time.perf_counter() - t1))
+            n_streams = 2 if mode in ("rgbd", "stereo") else 1
+            dec, dec_s = res["decodes"], res["decode_s"]
+            print(f"[datasets] {mode} on {ds} "
+                  f"({slam.cfg.camera.width}x{slam.cfg.camera.height}, "
+                  f"{slam.cfg.extractor.n_features} features, loop closing "
+                  f"on): initialised at frame {init} (JAX {j_init}; "
+                  f"reference {ids[:1]}, JAX {ex[f'{key}_ids'][:1]}), "
+                  f"{len(ids)} tracked, lost {lost}, keyframes made {made} "
+                  f"(JAX {j_made}), loops {slam.n_loops_closed} (JAX "
+                  f"{int(ex[f'{key}_n_loops'])}); ATE {ate:.5f} (JAX "
+                  f"{j_ate:.5f}, "
+                  f"{'scale-aligned' if mode == 'mono' else 'metric'}); "
+                  f"from files bit-equal to from memory (poses, keyframes); "
+                  f"throttle 3, mapper cycle pinned at {MAPPER_CYCLE_S[key]} "
+                  f"s, deterministic algorithms; launches {launches}",
+                  flush=True)
+            print(f"[datasets] {mode} on {ds}: frames/s from files "
+                  f"{np.median(fps['files']):.2f} (min "
+                  f"{min(fps['files']):.2f}, max {max(fps['files']):.2f}), "
+                  f"from memory {np.median(fps['memory']):.2f} (min "
+                  f"{min(fps['memory']):.2f}, max {max(fps['memory']):.2f}), "
+                  f"median of {DATASET_TIMED_RUNS} plain runs each, in turns; "
+                  f"decodes {dec} for {DATASET_FRAMES} frames x {n_streams} "
+                  f"images ({dec / (DATASET_FRAMES * n_streams):.3f} per "
+                  f"image; timed runs {[x[0] for x in decodes]}), host "
+                  f"{1e3 * dec_s / dec:.2f} ms per decode ({card})",
+                  flush=True)
+            del res, slam, mem
+
+        # (d) the user's own command line, unpinned, then the viewer
+        out = os.path.join(root, "traj.txt")
+        buf = pyio.StringIO()
+        with contextlib.redirect_stdout(buf):
+            rc = cli.main(["mono", "--dataset", "tum", "--root",
+                           os.path.join(root, "tum"), "--out", out])
+        lines = buf.getvalue().splitlines()
+        tracked = [ln for ln in lines if ln.startswith("frames tracked: ")]
+        ate_ln = [ln for ln in lines if ln.startswith("ATE RMSE: ")]
+        check(rc == 0 and len(tracked) == 1 and len(ate_ln) == 1,
+              f"cli.main: rc {rc}, output {lines[-4:]}")
+        n_tracked = int(tracked[0].split()[2])
+        rows = np.loadtxt(out).reshape(-1, 8)
+        check(len(rows) == n_tracked > 0 and set(np.round(rows[:, 0], 6))
+              <= set(np.round(lay["tum"]["ts"], 6)),
+              f"cli.main wrote {len(rows)} rows for {n_tracked} frames")
+        viz = os.path.join(root, "viz")
+        with contextlib.redirect_stdout(pyio.StringIO()):
+            rc_viz = cli.main(["rgbd", "--dataset", "tum", "--root",
+                               os.path.join(root, "tum"), "--per-frame",
+                               "--viz", viz, "--viz-every", "5", "--limit",
+                               str(VIZ_FRAMES)])
+        pngs = sorted(os.listdir(viz))
+        check(rc_viz == 0 and any(n.startswith("frame_") for n in pngs)
+              and any(n.startswith("map_") for n in pngs),
+              f"--viz wrote {pngs}")
+        print(f"[datasets] cli.main mono --dataset tum --root DIR --out "
+              f"FILE (unpinned): exit 0, {tracked[0].strip()}; "
+              f"{ate_ln[0].strip()}; {len(rows)} TUM rows at the dataset's "
+              f"stamps; rgbd --per-frame --viz over {VIZ_FRAMES} frames "
+              f"wrote {', '.join(pngs)}", flush=True)
+    return total, n_frames
+
+
 def preflight() -> None:
     """Fail at once, naming it, if what the script reads beside itself is
     missing (it was copied out of the repository alone)."""
@@ -2579,6 +2939,8 @@ def main() -> int:
         mc_l, n_mc = phase_multichip_run(card, merged)
         phase_multichip_ba(card, merged)
     lap("multichip")
+    ds_l, n_ds = phase_datasets(card)
+    lap("datasets")
     check("jax" not in sys.modules, "jax was imported")
     print("[time] seconds per phase after the card and the build: "
           + ", ".join(f"{b[0]} {b[1] - a[1]:.1f}"
@@ -2600,11 +2962,13 @@ def main() -> int:
                                  "coop": coop_l[r["name"]],
                                  "coop_merge_on_saved_state":
                                      coop_a[r["name"]],
-                                 "multichip": mc_l[r["name"]]}
+                                 "multichip": mc_l[r["name"]],
+                                 "datasets": ds_l[r["name"]]}
         # per tracked frame of the localization slice, per input frame of
         # the mapping run (initialisation and backend inserts included) and
         # of the kidnap (grey frames and relocalization attempts included)
-        # and of the loop run (loop closing on)
+        # and of the loop run (loop closing on), and per input frame of the
+        # four gated dataset runs (re-tracked frames and inserts included)
         r["launches_per_frame"] = {
             "localization": loc_launches[r["name"]] / n_loc,
             "mapping": map_launches[r["name"]] / MAPPING_FRAMES,
@@ -2613,7 +2977,8 @@ def main() -> int:
             "stereo": stereo_l[r["name"]] / DEPTH_FRAMES,
             "rgbd": rgbd_l[r["name"]] / DEPTH_FRAMES,
             "coop": coop_l[r["name"]] / n_coop,
-            "multichip": mc_l[r["name"]] / n_mc}
+            "multichip": mc_l[r["name"]] / n_mc,
+            "datasets": ds_l[r["name"]] / n_ds}
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -1,6 +1,11 @@
-"""Command-line driver (port of coslam_tpu/cli.py: the `coop` and
-`synthetic` modes).
+"""Command-line driver (port of coslam_tpu/cli.py) — the analogue of the
+reference's ROS nodes (Examples/ROS/ORB_SLAM2/src/ros_{mono,stereo,rgbd}.cc
+main()).
 
+    python -m coslam_tpu_torch.cli mono   --dataset tum   --root <dir> --out traj.txt
+    python -m coslam_tpu_torch.cli rgbd   --dataset tum   --root <dir>
+    python -m coslam_tpu_torch.cli stereo --dataset kitti --root <dir> --seq 00
+    python -m coslam_tpu_torch.cli mono   --dataset euroc --root <dir> --viz out/
     python -m coslam_tpu_torch.cli synthetic --frames 60
     python -m coslam_tpu_torch.cli coop --frames 90 --transport memory
     python -m coslam_tpu_torch.cli coop --role sender      # and, in another
@@ -8,9 +13,12 @@
     ... --device cpu                                       # without a GPU
 
 Everything runs on the GPU unless `--device cpu` is given.  The dataset
-modes (`mono`, `rgbd`, `stereo`) need the dataset loaders of utils/io.py,
-which are not ported yet (ROADMAP Queue 1 item 17): they exit with an
-error.
+modes read a TUM RGB-D, KITTI odometry or EuRoC directory (utils/io.py),
+run the pipeline over it, report per-stage timing and (where the dataset
+has ground truth) ATE RMSE, and export the trajectory in TUM or KITTI
+format (reference System::SaveTrajectoryTUM / KITTI, System.cc:325/422).
+`--viz DIR` writes frame and map renderings (viz/), the headless analogue
+of the reference's Pangolin viewer.
 
 `coop` is the analogue of the reference's sender / receiver node pair
 (ORB_SLAM2.1 "Mono2" publishing keyframe batches over LCM UDP multicast,
@@ -31,8 +39,142 @@ import time
 import numpy as np
 
 from coslam_tpu_torch import config as cfg_mod
-from coslam_tpu_torch.utils import evaluation, profiling, synthetic
+from coslam_tpu_torch.models.system import System
+from coslam_tpu_torch.utils import evaluation, io as cio, profiling, synthetic
 from coslam_tpu_torch.utils.device import DEFAULT_DEVICE
+
+DATASET_PRESETS = {"tum": cfg_mod.tum_fr1_config,
+                   "kitti": cfg_mod.kitti_config,
+                   "euroc": cfg_mod.euroc_config}
+
+
+class _LazyImages:
+    """List-like lazy loader so the chunked driver can consume dataset
+    frames without materializing the whole sequence in RAM.  It keeps the
+    last frame only (the JAX CLI's policy), so a frame the driver tracks
+    again after a chunk cut is decoded again: `decodes` counts the loads
+    and `decode_s` their host seconds."""
+
+    def __init__(self, paths, loader):
+        self.paths = paths
+        self.loader = loader
+        self._cache = (None, None)
+        self.decodes = 0
+        self.decode_s = 0.0
+
+    def __len__(self):
+        return len(self.paths)
+
+    def __getitem__(self, i):
+        if self._cache[0] != i:
+            t0 = time.perf_counter()
+            self._cache = (i, self.loader(self.paths[i]))
+            self.decode_s += time.perf_counter() - t0
+            self.decodes += 1
+        return self._cache[1]
+
+
+def _run(slam: System, frames, mode: str, depth_factor: float,
+         timer: profiling.StageTimer, limit: int, viewer=None,
+         per_frame: bool = False):
+    """Track `frames` (utils/io.SequenceFrame, the first `limit` where it
+    is set) in `mode`: per frame when a viewer needs every frame's state or
+    `per_frame` asks for it, else through the chunked driver
+    (System.run_sequence).  Returns the timestamps and the lazy image
+    sequences it read (left images first)."""
+    frames = frames[:limit] if limit else frames
+    timestamps = [fr.timestamp for fr in frames]
+    imgs = _LazyImages([fr.rgb_path for fr in frames], cio.load_image)
+    depths = rights = None
+    if mode == "rgbd":
+        depths = _LazyImages([fr.depth_path for fr in frames],
+                             lambda p: cio.load_depth(p, depth_factor))
+    elif mode == "stereo":
+        rights = _LazyImages([fr.right_path for fr in frames],
+                             cio.load_image)
+    loaded = [x for x in (imgs, depths, rights) if x is not None]
+
+    if viewer is not None or per_frame:
+        for i, fr in enumerate(frames):
+            img = imgs[i]
+            with timer("track"):
+                if mode == "mono":
+                    slam.track_mono(img, i, timestamp=fr.timestamp)
+                elif mode == "rgbd":
+                    slam.track_rgbd(img, depths[i], i,
+                                    timestamp=fr.timestamp)
+                else:
+                    slam.track_stereo(img, rights[i], i,
+                                      timestamp=fr.timestamp)
+            if viewer is not None and slam.state != "NOT_INITIALIZED":
+                viewer.update(slam, img, slam.last_frame, i)
+        return timestamps, loaded
+
+    with timer("track"):
+        slam.run_sequence(imgs, timestamps=timestamps, depths=depths,
+                          right_images=rights)
+    return timestamps, loaded
+
+
+def run_dataset(mode: str, dataset: str, root: str, sequence: str = "00",
+                limit: int = 0, out=None, fmt: str = "tum",
+                per_frame: bool = False, viz=None, viz_every: int = 10,
+                timer: profiling.StageTimer = None, device=DEFAULT_DEVICE,
+                prepare=None) -> dict:
+    """SLAM in `mode` (mono | rgbd | stereo) over a `dataset` (tum | kitti
+    | euroc) directory: the dataset's preset configuration, its own camera
+    where it has one (EuRoC's sensor.yaml), the report lines, the ATE
+    against its ground truth, and the trajectory written to `out` in
+    `fmt` (tum | kitti).  `prepare(slam)` is called on the new System
+    before the first frame.  Returns the System, the timestamps, the
+    tracked frame ids and poses, the ATE (or None) and the decode counts."""
+    timer = timer or profiling.StageTimer(device=device)
+    if dataset == "tum":
+        seq = cio.load_tum_rgbd(root)
+    elif dataset == "kitti":
+        seq = cio.load_kitti(root, sequence)
+    else:
+        seq = cio.load_euroc(root)
+    cfg = DATASET_PRESETS[dataset]()
+    if seq.camera is not None:
+        cfg = cfg.replace(camera=seq.camera)  # dataset-provided calibration
+    cfg = cfg.replace(sensor=mode)
+
+    viewer = None
+    if viz:
+        from coslam_tpu_torch.viz import Viewer
+        viewer = Viewer(viz, every=viz_every)
+    slam = System(cfg, device=device)
+    if prepare is not None:
+        prepare(slam)
+    timestamps, loaded = _run(slam, seq.frames, mode, seq.depth_factor,
+                              timer, limit, viewer, per_frame=per_frame)
+    ids, poses = slam.trajectory_poses()
+    print(timer.report())
+    print(f"frames tracked: {len(ids)} / {len(timestamps)}"
+          f"  keyframes: {int(slam.map.n_kf)}"
+          f"  map points: {int(slam.map.pt_valid.sum())}")
+    ate = None
+    if seq.gt_poses_wc is not None and len(ids) > 10:
+        # ground truth matched by the nearest timestamp
+        ts = np.asarray([timestamps[i] for i in ids])
+        gt_idx = np.argmin(np.abs(seq.gt_timestamps[None, :]
+                                  - ts[:, None]), axis=1)
+        ate = evaluation.ate_rmse(evaluation.trajectory_xyz(poses),
+                                  seq.gt_poses_wc[gt_idx][:, :3, 3],
+                                  with_scale=(mode == "mono"))
+        print(f"ATE RMSE: {ate * 100:.2f} cm")
+    if out:
+        ts = [timestamps[i] for i in ids]
+        if fmt == "tum":
+            cio.save_trajectory_tum(out, ts, poses)
+        else:
+            cio.save_trajectory_kitti(out, poses)
+        print(f"trajectory written to {out}")
+    return {"slam": slam, "timestamps": timestamps, "ids": ids,
+            "poses": poses, "ate": ate,
+            "decodes": sum(x.decodes for x in loaded),
+            "decode_s": sum(x.decode_s for x in loaded)}
 
 
 def _coop_setup(frames: int, seed: int, camera=None, extractor=None):
@@ -240,11 +382,9 @@ def run_coop(frames: int = 90, transport: str = "memory",
 
 def run_synthetic(frames: int, timer: profiling.StageTimer,
                   device=DEFAULT_DEVICE, per_frame: bool = False,
-                  out=None) -> dict:
-    """Monocular SLAM over a rendered sequence (640x480, 500 features)."""
-    from coslam_tpu_torch.models.system import System
-    from coslam_tpu_torch.utils import io as cio
-
+                  out=None, viewer=None) -> dict:
+    """Monocular SLAM over a rendered sequence (640x480, 500 features);
+    per frame when `per_frame` is set or a `viewer` draws every frame."""
     cfg = cfg_mod.SystemConfig(
         camera=cfg_mod.CameraConfig(fx=400, fy=400, cx=320, cy=240,
                                     width=640, height=480),
@@ -254,10 +394,12 @@ def run_synthetic(frames: int, timer: profiling.StageTimer,
     traj = synthetic.make_trajectory(frames, seed=3)
     seq_imgs = synthetic.render_sequence(cfg.camera, traj, scene)
     slam = System(cfg, device=device)
-    if per_frame:
+    if viewer is not None or per_frame:
         for i, img in enumerate(seq_imgs):
             with timer("track"):
                 slam.track_mono(img, i)
+            if viewer is not None and slam.state != "NOT_INITIALIZED":
+                viewer.update(slam, img, slam.last_frame, i)
     else:
         with timer("track"):
             slam.run_sequence(list(seq_imgs))
@@ -279,9 +421,19 @@ def main(argv=None):
                    choices=["mono", "rgbd", "stereo", "synthetic", "coop"])
     p.add_argument("--device", default=DEFAULT_DEVICE,
                    help="torch device: the GPU unless `cpu` is given")
+    p.add_argument("--dataset", choices=["tum", "kitti", "euroc"],
+                   default="tum")
+    p.add_argument("--root", help="dataset root directory")
+    p.add_argument("--seq", default="00", help="KITTI sequence")
     p.add_argument("--out", default=None, help="trajectory output path")
+    p.add_argument("--format", choices=["tum", "kitti"], default="tum")
+    p.add_argument("--limit", type=int, default=0, help="max frames")
     p.add_argument("--frames", type=int, default=60,
                    help="synthetic sequence length")
+    p.add_argument("--viz", default=None, metavar="DIR",
+                   help="write frame/map renderings to DIR (the headless "
+                        "analogue of the reference's Pangolin viewer)")
+    p.add_argument("--viz-every", type=int, default=10)
     p.add_argument("--transport", choices=["memory", "udp"], default="memory",
                    help="coop mode: in-memory bus or native UDP multicast "
                         "(the LCM replacement)")
@@ -301,13 +453,15 @@ def main(argv=None):
                    help="record the run with torch.profiler into "
                         "DIR/trace.json (utils/profiling.trace)")
     p.add_argument("--per-frame", action="store_true",
-                   help="synthetic mode: one frame per call instead of the "
+                   help="drive tracking one frame per call instead of the "
                         "chunked driver (System.run_sequence)")
+    p.add_argument("--no-warmup", action="store_true",
+                   help="accepted for the JAX CLI's command lines and "
+                        "ignored: the port compiles nothing ahead of time "
+                        "and builds its CUDA kernels at first use")
     args = p.parse_args(argv)
-    if args.mode in ("mono", "rgbd", "stereo"):
-        p.error(f"mode {args.mode!r} needs the dataset loaders of "
-                "utils/io.py, which coslam_tpu_torch does not have yet "
-                "(ROADMAP Queue 1 item 17); use `synthetic` or `coop`")
+    if args.mode in ("mono", "rgbd", "stereo") and not args.root:
+        p.error("--root required for dataset modes")
 
     with contextlib.ExitStack() as stack:
         if args.profile:
@@ -324,9 +478,17 @@ def main(argv=None):
                          publish_every=args.publish_every,
                          bidirectional=args.bidirectional, timer=timer,
                          device=args.device)
-        else:
+        elif args.mode == "synthetic":
+            viewer = None
+            if args.viz:
+                from coslam_tpu_torch.viz import Viewer
+                viewer = Viewer(args.viz, every=args.viz_every)
             run_synthetic(args.frames, timer, args.device, args.per_frame,
-                          args.out)
+                          args.out, viewer)
+        else:
+            run_dataset(args.mode, args.dataset, args.root, args.seq,
+                        args.limit, args.out, args.format, args.per_frame,
+                        args.viz, args.viz_every, timer, args.device)
     return 0
 
 

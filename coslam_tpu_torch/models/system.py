@@ -242,6 +242,7 @@ class System:
         self._note_frame(frame_id, timestamp)
         self._cur_depth = None
         frame = build_frame(self._to_device(img), self.cfg)
+        self.last_frame = frame  # for viewers (FrameDrawer::Update)
         if self.state == "NOT_INITIALIZED":
             self._try_initialize(frame, frame_id)
             T = self.last_T if self.state == "OK" else None
@@ -272,6 +273,7 @@ class System:
     def _track_with_depth(self, img: torch.Tensor, aux: torch.Tensor,
                           sensor: str, frame_id: int) -> Optional[np.ndarray]:
         frame = build_frame(img, self.cfg)
+        self.last_frame = frame
         sd = tracking.sensor_depth(self.cfg, frame, img, aux, sensor)
         self._cur_depth = sd.depth
         if self.state == "NOT_INITIALIZED":

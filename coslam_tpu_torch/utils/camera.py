@@ -1,11 +1,25 @@
 """Pinhole camera with radial-tangential distortion (port of coslam_tpu/
-utils/camera.py: `undistort_pixels` and what it calls, and `backproject`)."""
+utils/camera.py).  Every function broadcasts over leading dimensions."""
 
 from __future__ import annotations
 
 import torch
 
 from coslam_tpu_torch.config import CameraConfig
+
+
+def intrinsics_matrix(cam: CameraConfig, device="cpu") -> torch.Tensor:
+    return torch.tensor(cam.K, dtype=torch.float32, device=device)
+
+
+def distort_normalized(cam: CameraConfig, xn: torch.Tensor) -> torch.Tensor:
+    """Apply radial-tangential distortion to normalized coords (..., 2)."""
+    x, y = xn[..., 0], xn[..., 1]
+    r2 = x * x + y * y
+    radial = 1.0 + r2 * (cam.k1 + r2 * (cam.k2 + r2 * cam.k3))
+    xd = x * radial + 2.0 * cam.p1 * x * y + cam.p2 * (r2 + 2.0 * x * x)
+    yd = y * radial + cam.p1 * (r2 + 2.0 * y * y) + 2.0 * cam.p2 * x * y
+    return torch.stack([xd, yd], dim=-1)
 
 
 def undistort_normalized(cam: CameraConfig, xd: torch.Tensor,
@@ -52,3 +66,29 @@ def backproject(cam: CameraConfig, uv: torch.Tensor,
     x = (uv[..., 0] - cam.cx) / cam.fx
     y = (uv[..., 1] - cam.cy) / cam.fy
     return torch.stack([x * depth, y * depth, depth], dim=-1)
+
+
+def project(cam: CameraConfig, pts_cam: torch.Tensor,
+            distort: bool = False):
+    """Camera-frame points (..., 3) -> (pixels (..., 2), depth (...)).
+    Points at the camera plane are guarded against division by zero;
+    validity is the caller's, through the depth."""
+    z = pts_cam[..., 2]
+    inv_z = 1.0 / torch.where(torch.abs(z) < 1e-8,
+                              torch.full_like(z, 1e-8), z)
+    xn = pts_cam[..., :2] * inv_z[..., None]
+    if distort and cam.has_distortion:
+        xn = distort_normalized(cam, xn)
+    return normalized_to_pixel(cam, xn), z
+
+
+def in_image(cam: CameraConfig, uv: torch.Tensor,
+             margin: float = 0.0) -> torch.Tensor:
+    return ((uv[..., 0] >= margin) & (uv[..., 0] < cam.width - margin)
+            & (uv[..., 1] >= margin) & (uv[..., 1] < cam.height - margin))
+
+
+def projection_matrix(cam: CameraConfig, Tcw: torch.Tensor) -> torch.Tensor:
+    """K @ [R|t] for triangulation: (..., 4, 4) -> (..., 3, 4)."""
+    K = intrinsics_matrix(cam, Tcw.device).to(Tcw.dtype)
+    return torch.einsum("ij,...jk->...ik", K, Tcw[..., :3, :])

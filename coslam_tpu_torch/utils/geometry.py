@@ -82,6 +82,10 @@ def se3(R: torch.Tensor, t: torch.Tensor) -> torch.Tensor:
     return T
 
 
+def se3_identity(dtype=torch.float32, device="cpu") -> torch.Tensor:
+    return torch.eye(4, dtype=dtype, device=device)
+
+
 def rot(T: torch.Tensor) -> torch.Tensor:
     return T[..., :3, :3]
 
@@ -137,9 +141,31 @@ def exp_se3(xi: torch.Tensor) -> torch.Tensor:
     return se3(R, t)
 
 
+def log_se3(T: torch.Tensor) -> torch.Tensor:
+    """se3 log: (..., 4, 4) -> (..., 6) twist [rho(3), phi(3)]."""
+    phi = log_so3(rot(T))
+    theta2 = (phi * phi).sum(-1)
+    theta = torch.sqrt(theta2 + _EPS)
+    small = theta2 < 1e-8
+    W = hat(phi)
+    # V^{-1} = I - W/2 + (1/theta^2)(1 - theta sin/(2(1-cos))) W^2
+    cot_term = torch.where(
+        small, 1.0 / 12.0 + theta2 / 720.0,
+        (1.0 - (theta * torch.sin(theta))
+         / (2.0 * (1.0 - torch.cos(theta)) + _EPS)) / (theta2 + _EPS))
+    Vinv = _eye3_like(W) - 0.5 * W + cot_term[..., None, None] * (W @ W)
+    rho = (Vinv @ trans(T)[..., None])[..., 0]
+    return torch.cat([rho, phi], dim=-1)
+
+
 def transform_points(T: torch.Tensor, pts: torch.Tensor) -> torch.Tensor:
     """Apply (..., 4, 4) to points (..., N, 3) -> (..., N, 3)."""
     return pts @ rot(T).transpose(-1, -2) + trans(T)[..., None, :]
+
+
+def apply_se3(T: torch.Tensor, p: torch.Tensor) -> torch.Tensor:
+    """Apply (..., 4, 4) to a single point (..., 3)."""
+    return (rot(T) @ p[..., None])[..., 0] + trans(T)
 
 
 def quat_to_rot(q: torch.Tensor) -> torch.Tensor:
@@ -295,3 +321,43 @@ def jacfwd_rows(f, x: torch.Tensor):
 
     out, tangents = torch.func.vmap(column)(eye)
     return out[0], torch.movedim(tangents, 0, -1)
+
+
+# ---------------------------------------------------------------------------
+# Triangulation (reference Initializer.cc:734 Triangulate — DLT / SVD) and
+# quaternion interpolation
+# ---------------------------------------------------------------------------
+
+def triangulate_dlt(P1: torch.Tensor, P2: torch.Tensor, x1: torch.Tensor,
+                    x2: torch.Tensor) -> torch.Tensor:
+    """Linear triangulation: P1, P2 (..., 3, 4) projection matrices, x1, x2
+    (..., 2) image points -> (..., 3) world points, from the smallest right
+    singular vector of the 4x4 DLT system (Initializer.cc:734-758)."""
+    rows = torch.stack([
+        x1[..., 0, None] * P1[..., 2, :] - P1[..., 0, :],
+        x1[..., 1, None] * P1[..., 2, :] - P1[..., 1, :],
+        x2[..., 0, None] * P2[..., 2, :] - P2[..., 0, :],
+        x2[..., 1, None] * P2[..., 2, :] - P2[..., 1, :],
+    ], dim=-2)
+    X = torch.linalg.svd(rows).Vh[..., 3, :]
+    w = X[..., 3:4]
+    return X[..., :3] / (w + torch.where(torch.abs(w) < _EPS,
+                                         torch.full_like(w, _EPS),
+                                         torch.zeros_like(w)))
+
+
+def slerp(q0: torch.Tensor, q1: torch.Tensor, u) -> torch.Tensor:
+    """Spherical linear interpolation of quaternions (w, x, y, z)."""
+    u = torch.as_tensor(u, dtype=q0.dtype, device=q0.device)
+    d = (q0 * q1).sum(-1, keepdim=True)
+    q1 = torch.where(d < 0, -q1, q1)
+    d = torch.abs(d)
+    theta = torch.arccos(torch.clamp(d, -1.0, 1.0 - 1e-7))
+    sin_theta = torch.sin(theta)
+    small = sin_theta < 1e-5
+    w0 = torch.where(small, 1.0 - u,
+                     torch.sin((1.0 - u) * theta) / (sin_theta + _EPS))
+    w1 = torch.where(small, u,
+                     torch.sin(u * theta) / (sin_theta + _EPS))
+    q = w0 * q0 + w1 * q1
+    return q / (torch.linalg.vector_norm(q, dim=-1, keepdim=True) + _EPS)

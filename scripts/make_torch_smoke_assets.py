@@ -78,6 +78,22 @@ Runs the JAX package (`coslam_tpu`) on the CPU:
      run the initialisation draws of both agents, the packet, merge and
      keyframe counts, the keyframes' frames, owners and centres and the
      joint ATE.
+  10. the dataset front end: chip_smoke.py's phase 12 directories
+     (`chip_smoke.dataset_layouts`: TUM fr1, KITTI 00 and EuRoC layouts
+     of make_trajectory(60, seed=3) in make_scene(600, seed=3), written
+     with the port's layout writers), each run by the JAX CLI's own driver
+     `coslam_tpu.cli._run` (the chunked path) on a System built as the
+     CLI's dataset branch builds it — the dataset's preset, its own camera
+     where it has one, `sensor=mode`, loop closing on — with the keyframe
+     throttle pinned at 3 and the mapper cycle at chip_smoke.MAPPER_CYCLE_S,
+     for `mono` on tum, `rgbd` on tum, `stereo` on kitti and `mono` on
+     euroc; writes `smoke_dataset_expected.npz`: per run the tracked frame
+     ids (the first is the initialisation frame of a depth sensor, the
+     reference frame of a monocular initialisation, whose frame is the
+     second), poses and timestamps, the keyframes (inserted frames, valid
+     count), the lost frames and the ATE as the
+     CLI's `_dispatch` computes it, and the sha256 of every file the run
+     read.
 
 The workload is the bench's (bench.py:140-160: 640x480, 1000 features,
 max_keypoints=1024, make_scene(600, seed=3), make_trajectory(360, seed=3))
@@ -87,12 +103,12 @@ depend on host speed; the localization map uses the default capacity
 
     JAX_PLATFORMS=cpu python scripts/make_torch_smoke_assets.py \
         [--mapping-only | --reloc-only | --loop-only | --stereo-only |
-         --rgbd-only | --vocab-only | --coop-only]
+         --rgbd-only | --vocab-only | --coop-only | --datasets-only]
 
 --mapping-only rebuilds steps 3 and 4, --reloc-only step 4 alone (it still
 runs step 3's mapping, without writing its file), --loop-only step 5 alone
 (~4 min), --stereo-only step 6, --rgbd-only step 7, --vocab-only step 8,
---coop-only step 9 (~2 min).
+--coop-only step 9 (~2 min), --datasets-only step 10.
 """
 
 from __future__ import annotations
@@ -653,6 +669,7 @@ def vocab_reference() -> None:
 DEPTH_ASSETS = ("smoke_stereo_expected.npz", "smoke_rgbd_expected.npz",
                 "smoke_vocab_expected.npz")
 COOP_ASSETS = ("smoke_coop_merge.npz", "smoke_coop_expected.npz")
+DATASET_ASSET = "smoke_dataset_expected.npz"
 
 
 def coop_setup():
@@ -1074,6 +1091,72 @@ def coop_reference(out_dir: str = ASSETS) -> None:
         **draws)
 
 
+def dataset_reference(out_dir: str = ASSETS) -> None:
+    """Step 10."""
+    import tempfile
+
+    import chip_smoke as cs
+    from coslam_tpu import cli as jcli
+    from coslam_tpu import config as jcfg
+    from coslam_tpu.utils import io as jio
+    from coslam_tpu.utils import profiling as jprof
+
+    loaders = {"tum": jio.load_tum_rgbd,
+               "kitti": lambda root: jio.load_kitti(root, "00"),
+               "euroc": jio.load_euroc}
+    presets = {"tum": jcfg.tum_fr1_config, "kitti": jcfg.kitti_config,
+               "euroc": jcfg.euroc_config}
+    with tempfile.TemporaryDirectory(prefix="coslam_datasets_") as root:
+        cs.dataset_layouts(root)
+        hashes = cs.dataset_hashes(root)
+        arrays = {"files": np.asarray(list(hashes)),
+                  "sha256": np.asarray(list(hashes.values()))}
+        for mode, ds in cs.DATASET_RUNS:
+            t0 = time.perf_counter()
+            key = f"{ds}_{mode}"
+            seq = loaders[ds](os.path.join(root, ds))
+            cfg = presets[ds]()
+            if seq.camera is not None:
+                cfg = cfg.replace(camera=seq.camera)
+            cfg = cfg.replace(sensor=mode)
+            cfg = cfg.replace(tracker=dataclasses.replace(
+                cfg.tracker, mapper_latency_frames=3))
+            s = System(cfg)
+            s._insert_cost_s = cs.MAPPER_CYCLE_S[key]
+            s._note_insert_cost = lambda dt: None
+            timestamps = jcli._run(s, seq.frames, mode, seq.depth_factor,
+                                   jprof.StageTimer(sync=False), 0)
+            ids, poses = s.trajectory_poses()
+            s.shutdown()
+            # ATE as coslam_tpu.cli._dispatch computes it
+            ts = np.asarray([timestamps[i] for i in ids])
+            gt_idx = np.argmin(np.abs(seq.gt_timestamps[None, :]
+                                      - ts[:, None]), axis=1)
+            ate = evaluation.ate_rmse(
+                evaluation.trajectory_xyz(poses),
+                seq.gt_poses_wc[gt_idx][:, :3, 3],
+                with_scale=(mode == "mono"))
+            lost = [st["frame"] for st in s.stats if st.get("lost")]
+            kf_frames = [st["frame"] for st in s.stats if st.get("keyframe")]
+            n_kf = int(np.asarray(s.map.kf_valid).sum())
+            print(f"{mode} on {ds} ({cfg.camera.width}x{cfg.camera.height}, "
+                  f"{len(seq.frames)} frames): first tracked frames "
+                  f"{ids[:2]}, {len(ids)} tracked, "
+                  f"lost {len(lost)}, {len(kf_frames)} keyframes inserted, "
+                  f"{n_kf} valid, loops {s.n_loops_closed}, ATE {ate:.5f} "
+                  f"({time.perf_counter() - t0:.1f} s)")
+            arrays.update({
+                f"{key}_ids": np.asarray(ids, np.int32),
+                f"{key}_T": np.asarray(poses, np.float32),
+                f"{key}_ts": ts,
+                f"{key}_lost": np.asarray(lost, np.int32),
+                f"{key}_kf_frames": np.asarray(kf_frames, np.int32),
+                f"{key}_n_keyframes": np.int32(n_kf),
+                f"{key}_n_loops": np.int32(s.n_loops_closed),
+                f"{key}_ate": np.float64(ate)})
+    np.savez_compressed(os.path.join(out_dir, DATASET_ASSET), **arrays)
+
+
 def main() -> int:
     os.makedirs(ASSETS, exist_ok=True)
     depth_only = {"--stereo-only": lambda: depth_reference("stereo"),
@@ -1085,6 +1168,11 @@ def main() -> int:
             p = os.path.join(ASSETS, DEPTH_ASSETS[i])
             print(f"{p}: {os.path.getsize(p)} bytes")
             return 0
+    if "--datasets-only" in sys.argv:
+        dataset_reference()
+        p = os.path.join(ASSETS, DATASET_ASSET)
+        print(f"{p}: {os.path.getsize(p)} bytes")
+        return 0
     if "--coop-only" in sys.argv:
         coop_reference()
         for name in COOP_ASSETS:
@@ -1110,10 +1198,12 @@ def main() -> int:
         for fn in depth_only.values():
             fn()
         coop_reference()
+        dataset_reference()
     for name in ("smoke_map.npz", "smoke_expected.npz",
                  "smoke_mapping_expected.npz", "smoke_reloc_expected.npz",
                  "smoke_loop_map.npz", "smoke_loop_resume.npz",
-                 "smoke_loop_expected.npz") + DEPTH_ASSETS + COOP_ASSETS:
+                 "smoke_loop_expected.npz") + DEPTH_ASSETS + COOP_ASSETS \
+            + (DATASET_ASSET,):
         p = os.path.join(ASSETS, name)
         print(f"{p}: {os.path.getsize(p)} bytes")
     return 0

@@ -1,9 +1,9 @@
-"""coslam_tpu_torch.cli (the `coop` and `synthetic` modes) and
-utils/profiling against coslam_tpu's: the two-agent driver's schedule
-(which agent tracks which frame, when packets are published, buffered and
-received) equals the JAX CLI's `run_coop` on the same recording agents;
-the dataset modes exit naming ROADMAP item 17; the CLI runs on the GPU
-unless asked for the CPU; StageTimer's summary and trace()'s output."""
+"""coslam_tpu_torch.cli (the `coop` mode) and utils/profiling against
+coslam_tpu's: the two-agent driver's schedule (which agent tracks which
+frame, when packets are published, buffered and received) equals the JAX
+CLI's `run_coop` on the same recording agents; the CLI runs on the GPU
+unless asked for the CPU; StageTimer's summary and trace()'s output.  The
+dataset modes: tests/test_torch_cli_datasets.py."""
 
 import json
 
@@ -65,14 +65,6 @@ def test_coop_driver_schedule_matches_reference(monkeypatch, frames,
                     max_batch=10, bidirectional=bidirectional)
     assert tlog == jlog
     assert any(e[0] == "receive" and e[1] == 0 for e in tlog)
-
-
-@pytest.mark.parametrize("mode", ["mono", "rgbd", "stereo"])
-def test_dataset_modes_name_their_roadmap_item(mode, capsys):
-    with pytest.raises(SystemExit) as e:
-        tcli.main([mode, "--device", "cpu"])
-    assert e.value.code == 2
-    assert "item 17" in capsys.readouterr().err
 
 
 def test_cli_needs_the_gpu_by_default(monkeypatch):

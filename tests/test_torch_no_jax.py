@@ -1,7 +1,9 @@
 """The port stands alone: every coslam_tpu_torch module (and chip_smoke.py)
 imports with jax made unimportable, the ranks that the port's launcher
 spawns load no JAX module, and the slice's modules sit at the same relative
-paths as their coslam_tpu counterparts."""
+paths as their coslam_tpu counterparts.  The dataset front end (utils/io.py,
+cli.py, viz/) imports Pillow only where it reads or draws an image, as the
+reference does."""
 
 import os
 import subprocess
@@ -20,7 +22,8 @@ SLICE = ["config.py", "utils/geometry.py", "utils/camera.py",
          "ops/sim3.py", "ops/pnp.py", "optim/pose_graph.py",
          "ops/stereo.py", "models/cooperative.py", "utils/profiling.py",
          "native/__init__.py", "cli.py", "parallel/mesh.py",
-         "parallel/exchange.py", "parallel/sharded_ba.py"]
+         "parallel/exchange.py", "parallel/sharded_ba.py", "viz/__init__.py",
+         "viz/frame_drawer.py", "viz/map_drawer.py", "viz/viewer.py"]
 
 LOOP_MODULES = ["coslam_tpu_torch.ops.sim3",
                 "coslam_tpu_torch.optim.pose_graph",
@@ -106,3 +109,29 @@ print(mesh.launch(ranks.modules, 2))
                          capture_output=True, text=True, timeout=300)
     assert out.returncode == 0, out.stderr
     assert out.stdout.strip().splitlines()[-1] == "[[], []]"
+
+
+def test_dataset_front_end_imports_pillow_lazily():
+    """utils/io.py, viz/* and cli.py import with neither jax nor PIL
+    importable; without Pillow the viewer's first drawing raises an
+    ImportError naming it (the reference's own behaviour)."""
+    code = """
+import sys
+sys.modules["jax"] = None
+sys.modules["PIL"] = None
+import numpy as np
+from coslam_tpu_torch import cli, viz
+from coslam_tpu_torch.utils import io
+from coslam_tpu_torch.viz import frame_drawer, map_drawer, viewer
+assert not any(k == "PIL" or k.startswith(("PIL.", "jax.", "coslam_tpu."))
+               for k in sys.modules if sys.modules[k] is not None)
+try:
+    viz.draw_frame(np.zeros((8, 8), np.uint8), np.zeros((0, 2)),
+                   np.zeros(0, bool))
+except ImportError as e:
+    print("PIL" in str(e))
+"""
+    out = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
+                         capture_output=True, text=True, timeout=300)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip().splitlines()[-1] == "True"
