@@ -227,6 +227,27 @@ lines):
      in turns), host ms per decode, and decodes per input image (frames
      tracked again after a chunk cut are read again).
 
+ 13. bench (the measurement entry points: coslam_tpu_torch/entry.py, bench.py,
+     bench_scaling.py): (a) `entry.track_step` (K1, K2 twice, K3) on the
+     entry's example arguments and on a tracking case (frame 4 of the
+     bench's 8 frames, the previous frame's keypoints back-projected at the
+     rendered depth, the true pose as the prediction; its inputs are the
+     JAX run's, coslam_tpu_torch/assets/smoke_bench_expected.npz, written
+     by scripts/make_torch_smoke_assets.py --bench-only) against the JAX
+     package's jitted `track_step` on them: the frame's valid mask equal,
+     >= 99.9% of its descriptor bits, T within 1e-3, n_inliers within 5,
+     the two prefixes' counts equal; then `bench.bench_hot_path` with
+     B = BENCH_BATCH frames as one CUDA graph: its outputs equal to the
+     same frames eager, K1 / K2 / K3 captured 1 / 2 / 1 times a frame;
+     prints frames/s with the graph and eager and the stage ms; (b)
+     `bench.bench_full_system(repeats=1)` (120 frames, loop closing on, the
+     cadence AUTO): 0 lost frames, initialised, K1-K3 launched; prints
+     frames/s, keyframes and the chunk discard rate; (c)
+     `bench_scaling.make_problem()` (96 keyframes, 12000 points) through
+     `ba.solve`, `solve_sharded` and `solve_partitioned` (8 LM / 30 PCG) on
+     an NCCL group of world size 1 in this process, under deterministic
+     algorithms: max pose difference 0; prints ms per LM iteration.
+
 The second-to-last line is a JSON object with each kernel's launches (in
 the mapping run; `launches_by_path` and `launches_per_frame` have every
 path's run), error, times and bound.  K2's and K3's headline numbers are those of
@@ -326,7 +347,7 @@ NEEDS = (["coslam_tpu_torch/__init__.py", "coslam_tpu/assets/vocab.npz"]
              "smoke_rgbd_expected", "smoke_vocab_expected",
              "smoke_coop_merge", "smoke_coop_expected",
              "smoke_multichip_expected", "smoke_multichip_state",
-             "smoke_dataset_expected")])
+             "smoke_dataset_expected", "smoke_bench_expected")])
 # Published peaks of one H100 SXM: f32 outside the tensor cores (integer
 # operations are counted at the same rate) and device memory.
 PEAK_OPS_PER_S = 67e12
@@ -2875,6 +2896,101 @@ def phase_datasets(card: str):
     return total, n_frames
 
 
+BENCH_BATCH = 64                   # phase 13 (a): frames in one graph
+BENCH_FRAMES = 120                 # phase 13 (b): bench.py's full System
+BENCH_REPEATS = 1                  # phase 13 (b): timed runs after the first
+
+
+def _desc_bits(desc: np.ndarray) -> np.ndarray:
+    return np.unpackbits(np.ascontiguousarray(desc).view(np.uint8), axis=1)
+
+
+def phase_bench(card: str):
+    """Phase 13: the hot path against the JAX run and as one CUDA graph,
+    the full System bench, and the scaling bench's solves at world size
+    1.  Returns the kernels' launches on the hot path and on the full
+    System (the first run and the timed ones), the hot path's launches per
+    captured frame, and the full System's frames."""
+    from coslam_tpu_torch import bench, bench_scaling, entry
+    from coslam_tpu_torch.models.frame import build_frame
+    from coslam_tpu_torch.ops import cuda_kernels as ck
+
+    ex = np.load(os.path.join(ASSETS, "smoke_bench_expected.npz"))
+    names = ("img", "prev_uv", "prev_desc", "prev_valid", "prev_level",
+             "pt_pos", "T_pred")
+    for tag in ("ex_", "case_"):
+        args = [torch.from_numpy(np.array(ex[tag + n]).view(np.int32)
+                                 if n == "prev_desc" else
+                                 np.array(ex[tag + n])).to(DEV)
+                for n in names]
+        T, n_inl, desc = entry.track_step(*args)
+        valid = build_frame(args[0], entry.HOT_PATH).valid.cpu().numpy()
+        agree = (_desc_bits(desc.cpu().numpy()[valid])
+                 == _desc_bits(ex[tag + "desc"].view(np.int32)[valid])).mean()
+        dT = float(np.abs(T.cpu().numpy() - ex[tag + "T"]).max())
+        counts = (int(entry.extract_step(args[0])),
+                  int(entry.extract_match_step(*args[:4])))
+        ref = (int(ex[tag + "valid_count"]), int(ex[tag + "match_count"]))
+        print(f"[bench a] track_step on {tag[:-1]}: T within {dT:.2e} of "
+              f"the JAX run's, n_inliers {int(n_inl)} against "
+              f"{int(ex[tag + 'n_inliers'])}, valid mask equal "
+              f"{bool((valid == ex[tag + 'valid']).all())}, descriptor bits "
+              f"equal {agree:.6f}, valid / match counts {counts} against "
+              f"{ref}", flush=True)
+        check(dT <= 1e-3 and abs(int(n_inl) - int(ex[tag + "n_inliers"]))
+              <= 5 and bool((valid == ex[tag + "valid"]).all())
+              and agree >= 0.999 and counts == ref,
+              f"bench a: track_step on {tag[:-1]} against the JAX run")
+
+    ck.reset_launch_counts()
+    hot = bench.bench_hot_path(DEV, 0, BENCH_BATCH)
+    hot_l = dict(ck.LAUNCHES)
+    print(f"[bench a] hot path, B={BENCH_BATCH} frames as one CUDA graph: "
+          f"{hot.fps:.2f} frames/s, eager {hot.eager_fps:.2f} frames/s; "
+          f"graph outputs equal to eager {hot.equal}; launches per frame as "
+          f"captured {hot.launches_per_frame}; stage ms "
+          + ", ".join(f"{k} {v:.4f}" for k, v in hot.stages_ms.items())
+          + f"; FLOPs per frame (matmul family) {hot.flops_per_frame:.4g} | "
+          f"{card}", flush=True)
+    check(hot.graph and hot.equal, "bench a: graph outputs differ from eager")
+    check(hot.launches_per_frame == {"fast_score_nms": 1.0,
+                                     "masked_match": 2.0,
+                                     "pose_opt_lm": 1.0},
+          f"bench a: launches per captured frame {hot.launches_per_frame}")
+
+    ck.reset_launch_counts()
+    full = bench.bench_full_system(DEV, BENCH_FRAMES, repeats=BENCH_REPEATS)
+    full_l = dict(ck.LAUNCHES)
+    runs = [full.first] + full.runs
+    for tag, r in zip(["first"] + [f"timed {i}" for i in
+                                   range(len(full.runs))], runs):
+        print(f"[bench b] full System {tag}: {r.fps:.3f} frames/s, "
+              f"keyframes {r.keyframes}, lost {r.lost}, chunk discard "
+              f"{r.discard:.4f}, cadence {r.cadence} frames (AUTO), loops "
+              f"closed {r.loops_closed} | {card}", flush=True)
+    check(all(r.lost == 0 and r.initialized for r in runs),
+          f"bench b: lost or not initialised: {runs}")
+    check(all(v > 0 for v in full_l.values()),
+          f"bench b: a kernel was not launched: {full_l}")
+
+    spec = bench_scaling.Spec(bench_scaling.CAM,
+                              bench_scaling.make_problem(), DEV, 8, 30)
+    with DeterministicAlgorithms():
+        rows = bench_scaling.scaling_rows(spec, 1)
+    print(f"[bench c] make_problem() ({int(spec.prob.poses.shape[0])} "
+          f"keyframes, {int(spec.prob.points.shape[0])} points, "
+          f"{int(spec.prob.obs_kf.numel())} observations), 8 LM / 30 PCG, "
+          "world size 1, deterministic algorithms: "
+          + "; ".join(f"{r.get('mode', 'ba.solve')} {r['t_solve_s'] / 8 * 1e3:.3f}"
+                      f" ms per LM iteration, max pose difference "
+                      f"{r['max_pose_diff']:.3e}" for r in rows)
+          + f" | {card}", flush=True)
+    check(all(r["max_pose_diff"] == 0.0 for r in rows),
+          f"bench c: distributed solves differ from ba.solve: {rows}")
+    return (hot_l, hot.launches_per_frame, full_l,
+            BENCH_FRAMES * (1 + BENCH_REPEATS))
+
+
 def preflight() -> None:
     """Fail at once, naming it, if what the script reads beside itself is
     missing (it was copied out of the repository alone)."""
@@ -2941,6 +3057,8 @@ def main() -> int:
     lap("multichip")
     ds_l, n_ds = phase_datasets(card)
     lap("datasets")
+    hot_l, hot_pf, full_l, n_full = phase_bench(card)
+    lap("bench")
     check("jax" not in sys.modules, "jax was imported")
     print("[time] seconds per phase after the card and the build: "
           + ", ".join(f"{b[0]} {b[1] - a[1]:.1f}"
@@ -2963,12 +3081,16 @@ def main() -> int:
                                  "coop_merge_on_saved_state":
                                      coop_a[r["name"]],
                                  "multichip": mc_l[r["name"]],
-                                 "datasets": ds_l[r["name"]]}
+                                 "datasets": ds_l[r["name"]],
+                                 "hot_path": hot_l[r["name"]],
+                                 "full_system": full_l[r["name"]]}
         # per tracked frame of the localization slice, per input frame of
         # the mapping run (initialisation and backend inserts included) and
         # of the kidnap (grey frames and relocalization attempts included)
         # and of the loop run (loop closing on), and per input frame of the
-        # four gated dataset runs (re-tracked frames and inserts included)
+        # four gated dataset runs (re-tracked frames and inserts included);
+        # per frame of the hot path's graph as captured, and per input
+        # frame of the full System bench's runs (its first run included)
         r["launches_per_frame"] = {
             "localization": loc_launches[r["name"]] / n_loc,
             "mapping": map_launches[r["name"]] / MAPPING_FRAMES,
@@ -2978,7 +3100,9 @@ def main() -> int:
             "rgbd": rgbd_l[r["name"]] / DEPTH_FRAMES,
             "coop": coop_l[r["name"]] / n_coop,
             "multichip": mc_l[r["name"]] / n_mc,
-            "datasets": ds_l[r["name"]] / n_ds}
+            "datasets": ds_l[r["name"]] / n_ds,
+            "hot_path": hot_pf[r["name"]],
+            "full_system": full_l[r["name"]] / n_full}
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -121,8 +121,11 @@ def match_windowed(desc_q, uv_pred, radius, valid_q, desc_t, uv_t, valid_t,
     streaming matcher without building the (N, M) matrices."""
     N = desc_q.shape[0]
     dev = desc_q.device
-    r = torch.as_tensor(radius, dtype=torch.float32, device=dev) \
-        .broadcast_to((N,))
+    # a number becomes a fill on the device, not a host-to-device copy (a
+    # CUDA graph captures no copy from pageable host memory)
+    r = radius.to(dev, torch.float32).broadcast_to((N,)) \
+        if isinstance(radius, torch.Tensor) else \
+        torch.full((N,), float(radius), dtype=torch.float32, device=dev)
     # an absent octave is a null pointer to the kernel, not a tensor of zeros
     lq = level_q.to(torch.float32) if level_q is not None else None
     lt = level_t.to(torch.float32) if level_t is not None else None

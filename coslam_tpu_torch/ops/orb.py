@@ -120,8 +120,9 @@ def _select_level_keypoints(score: torch.Tensor, budget: int, cell: int,
     rows = torch.arange(nc, device=dev)
     i1 = torch.argmax(cells, 1)
     m1 = cells[rows, i1]
-    cells2 = cells.clone()
-    cells2[rows, i1] = -torch.inf
+    # a scatter of the number, not an index_put_ of a host tensor: nothing
+    # is copied to the device (safe to capture in a CUDA graph)
+    cells2 = cells.scatter(1, i1[:, None], -torch.inf)
     i2 = torch.argmax(cells2, 1)
     m2 = cells2[rows, i2]
 

@@ -78,7 +78,7 @@ def se3(R: torch.Tensor, t: torch.Tensor) -> torch.Tensor:
     T = torch.zeros(batch + (4, 4), dtype=R.dtype, device=R.device)
     T[..., :3, :3] = R
     T[..., :3, 3] = t
-    T[..., 3, 3] = 1.0
+    T[..., 3, 3].fill_(1.0)        # a fill, no host tensor copied over
     return T
 
 

@@ -94,6 +94,16 @@ Runs the JAX package (`coslam_tpu`) on the CPU:
      count), the lost frames and the ATE as the
      CLI's `_dispatch` computes it, and the sha256 of every file the run
      read.
+  11. the tracking hot path (`__graft_entry__.entry()`'s `track_step`,
+     jitted, and bench.py's `ex_step` / `em_step` bodies): on the entry's
+     example arguments, and on a tracking case — frame BENCH_CASE_FRAME of
+     the bench's 8 frames (make_scene(800, seed=0), make_trajectory(8,
+     seed=0) at the entry's 640x480 / fx 500 camera), the previous frame's
+     keypoints from `build_frame` as prev_*, valid where `render_depth`
+     sees a landmark, back-projected at that depth into the world as
+     pt_pos, and the frame's true pose as T_pred.  Writes
+     `smoke_bench_expected.npz`: both cases' inputs, (T, n_inliers, desc),
+     the frame's valid mask and the two prefixes' counts.
 
 The workload is the bench's (bench.py:140-160: 640x480, 1000 features,
 max_keypoints=1024, make_scene(600, seed=3), make_trajectory(360, seed=3))
@@ -103,12 +113,14 @@ depend on host speed; the localization map uses the default capacity
 
     JAX_PLATFORMS=cpu python scripts/make_torch_smoke_assets.py \
         [--mapping-only | --reloc-only | --loop-only | --stereo-only |
-         --rgbd-only | --vocab-only | --coop-only | --datasets-only]
+         --rgbd-only | --vocab-only | --coop-only | --datasets-only |
+         --bench-only]
 
 --mapping-only rebuilds steps 3 and 4, --reloc-only step 4 alone (it still
 runs step 3's mapping, without writing its file), --loop-only step 5 alone
 (~4 min), --stereo-only step 6, --rgbd-only step 7, --vocab-only step 8,
---coop-only step 9 (~2 min), --datasets-only step 10.
+--coop-only step 9 (~2 min), --datasets-only step 10, --bench-only step
+11 (~20 s).
 """
 
 from __future__ import annotations
@@ -670,6 +682,8 @@ DEPTH_ASSETS = ("smoke_stereo_expected.npz", "smoke_rgbd_expected.npz",
                 "smoke_vocab_expected.npz")
 COOP_ASSETS = ("smoke_coop_merge.npz", "smoke_coop_expected.npz")
 DATASET_ASSET = "smoke_dataset_expected.npz"
+BENCH_ASSET = "smoke_bench_expected.npz"
+BENCH_CASE_FRAME = 4               # the tracking case: frame 4 after 3
 
 
 def coop_setup():
@@ -1157,8 +1171,69 @@ def dataset_reference(out_dir: str = ASSETS) -> None:
     np.savez_compressed(os.path.join(out_dir, DATASET_ASSET), **arrays)
 
 
+def bench_case():
+    """The tracking case of step 11 as numpy arrays in track_step's
+    argument order (img, prev_uv, prev_desc (uint32), prev_valid,
+    prev_level, pt_pos, T_pred)."""
+    from __graft_entry__ import _cfg
+    cfg = _cfg()
+    cam = cfg.camera
+    scene = synthetic.make_scene(800, seed=0)
+    traj = synthetic.make_trajectory(8, seed=0)
+    k = BENCH_CASE_FRAME
+    frames = synthetic.render_sequence(cam, traj, scene)
+    prev = build_frame(jnp.asarray(frames[k - 1]), cfg)
+    uv = np.asarray(prev.uv_raw)
+    depth = synthetic.render_depth(cam, traj.poses_cw[k - 1], scene)
+    px = np.clip(np.round(uv).astype(np.int64), 0, [cam.width - 1,
+                                                    cam.height - 1])
+    z = depth[px[:, 1], px[:, 0]].astype(np.float64)
+    valid = np.asarray(prev.valid) & (z > 0)
+    T = traj.poses_cw[k - 1].astype(np.float64)
+    pc = np.stack([(np.asarray(prev.uv)[:, 0] - cam.cx) / cam.fx * z,
+                   (np.asarray(prev.uv)[:, 1] - cam.cy) / cam.fy * z, z], 1)
+    pw = (pc - T[:3, 3]) @ T[:3, :3]
+    return (frames[k], np.asarray(prev.uv), np.asarray(prev.desc), valid,
+            np.asarray(prev.level), pw.astype(np.float32),
+            traj.poses_cw[k].astype(np.float32))
+
+
+def bench_reference() -> dict:
+    """Step 11's arrays: for the example arguments ("ex_") and the tracking
+    case ("case_"), the inputs, track_step's outputs, the frame's valid
+    mask and the counts of bench.py's ex_step / em_step bodies."""
+    from __graft_entry__ import _cfg, entry
+    from coslam_tpu.ops import matching
+    fn, example = entry()
+    cfg = _cfg()
+    step = jax.jit(fn)
+    names = ("img", "prev_uv", "prev_desc", "prev_valid", "prev_level",
+             "pt_pos", "T_pred")
+    out = {}
+    for tag, args in (("ex_", example), ("case_", bench_case())):
+        img, prev_uv, prev_desc, prev_valid = args[:4]
+        T, n, desc = jax.device_get(step(*args))
+        f = build_frame(jnp.asarray(img), cfg)
+        mm = matching.match_windowed(
+            jnp.asarray(prev_desc), jnp.asarray(prev_uv), 20.0,
+            jnp.asarray(prev_valid), f.desc, f.uv, f.valid, cfg.matcher,
+            max_dist=cfg.matcher.th_high, mutual=True)
+        out.update({tag + k: np.asarray(a) for k, a in zip(names, args)})
+        out.update({tag + "T": np.asarray(T), tag + "n_inliers":
+                    np.asarray(n), tag + "desc": np.asarray(desc),
+                    tag + "valid": np.asarray(f.valid),
+                    tag + "valid_count": np.asarray(f.valid.sum()),
+                    tag + "match_count": np.asarray(mm.valid.sum())})
+    return out
+
+
 def main() -> int:
     os.makedirs(ASSETS, exist_ok=True)
+    if "--bench-only" in sys.argv:
+        p = os.path.join(ASSETS, BENCH_ASSET)
+        np.savez_compressed(p, **bench_reference())
+        print(f"{p}: {os.path.getsize(p)} bytes")
+        return 0
     depth_only = {"--stereo-only": lambda: depth_reference("stereo"),
                   "--rgbd-only": lambda: depth_reference("rgbd"),
                   "--vocab-only": vocab_reference}
@@ -1199,11 +1274,13 @@ def main() -> int:
             fn()
         coop_reference()
         dataset_reference()
+        np.savez_compressed(os.path.join(ASSETS, BENCH_ASSET),
+                            **bench_reference())
     for name in ("smoke_map.npz", "smoke_expected.npz",
                  "smoke_mapping_expected.npz", "smoke_reloc_expected.npz",
                  "smoke_loop_map.npz", "smoke_loop_resume.npz",
                  "smoke_loop_expected.npz") + DEPTH_ASSETS + COOP_ASSETS \
-            + (DATASET_ASSET,):
+            + (DATASET_ASSET, BENCH_ASSET):
         p = os.path.join(ASSETS, name)
         print(f"{p}: {os.path.getsize(p)} bytes")
     return 0

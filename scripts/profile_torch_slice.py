@@ -25,7 +25,9 @@ torch.profiler.record_function range.  With --coop: chip_smoke.py's phase
 features, K=128 / P=32768, packets carried as their wire bytes), plus a
 profile of the call that merges the two maps (`CoopAgent._try_merge`) and
 of the first `receive_packet` after the merge: device busy against the
-call's wall time and its kernel count.
+call's wall time and its kernel count.  With --hot-path: the bench's hot
+path (`coslam_tpu_torch/bench.py`: 64 `track_step`s over the bench's
+frames captured as one CUDA graph), one replay of the graph.
 
 Each path runs once to warm up, once unprofiled, then once under
 torch.profiler, and the script prints:
@@ -38,7 +40,7 @@ torch.profiler, and the script prints:
     synchronizations, memcpys, .item() calls).
 
     python3 scripts/profile_torch_slice.py [--mapping | --loop | --stereo |
-                                            --rgbd | --coop]
+                                            --rgbd | --coop | --hot-path]
 """
 
 from __future__ import annotations
@@ -259,6 +261,24 @@ def loop_runner():
     return run, split, LOOP_FRAMES
 
 
+def hot_path_runner(batch: int = 64):
+    """One replay of the bench's hot path graph: `batch` track_steps."""
+    from coslam_tpu_torch import bench, entry
+    dev = torch.device("cuda")
+    step, example = entry.entry(dev)
+    imgs = torch.from_numpy(bench.hot_path_frames(0, batch)).to(dev)
+    g = bench.capture(bench.frame_loop(step, imgs, example[1:]), dev)
+
+    def run():
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        g.replay()
+        torch.cuda.synchronize()
+        return time.perf_counter() - t0
+
+    return run, None, batch
+
+
 def _device_summary(prof, wall_s: float) -> str:
     """Device busy time, idle share of `wall_s`, kernel count and the
     port's three kernels of one profiled region."""
@@ -395,6 +415,8 @@ def main() -> int:
             "stereo" if "--stereo" in sys.argv else "rgbd")
     elif "--coop" in sys.argv:
         run, split, n = coop_runner()
+    elif "--hot-path" in sys.argv:
+        run, split, n = hot_path_runner()
     run()
     plain_wall = run()
     if split is not None:

@@ -264,3 +264,27 @@ def test_pose_opt_lm_zero_rounds(dev, gen):
                             chi2_th=5.991)
     assert torch.equal(T, T0)
     assert torch.equal(inl.cpu(), torch.as_tensor(isg > 0))
+
+
+def test_track_step_graph_replay_equals_eager(dev):
+    """The hot path captured as one CUDA graph of 4 consecutive
+    `track_step`s: a replay's outputs (T, n_inliers, desc) equal the same
+    loop's eager outputs, and the capture recorded K1 once, K2 twice and K3
+    once a frame; a replay launches through no wrapper, so it adds no
+    count."""
+    from coslam_tpu_torch import bench
+    from coslam_tpu_torch import entry
+
+    step, example = entry.entry(dev)
+    imgs = torch.from_numpy(bench.hot_path_frames(0, 4)).to(dev)
+    loop = bench.frame_loop(step, imgs, example[1:])
+    eager = loop()
+    g = bench.capture(loop, dev)
+    assert g.launches == {"fast_score_nms": 4, "masked_match": 8,
+                          "pose_opt_lm": 4}
+    before = dict(ck.LAUNCHES)
+    g.replay()
+    torch.cuda.synchronize()
+    assert ck.LAUNCHES == before
+    for a, b in zip(g.out, eager):
+        assert torch.equal(a, b)

@@ -1,9 +1,10 @@
-"""The port stands alone: every coslam_tpu_torch module (and chip_smoke.py)
-imports with jax made unimportable, the ranks that the port's launcher
-spawns load no JAX module, and the slice's modules sit at the same relative
-paths as their coslam_tpu counterparts.  The dataset front end (utils/io.py,
-cli.py, viz/) imports Pillow only where it reads or draws an image, as the
-reference does."""
+"""The port stands alone: every coslam_tpu_torch module (and chip_smoke.py,
+bench_torch.py) imports with jax made unimportable, the ranks that the
+port's launcher spawns load no JAX module, and the slice's modules sit at
+the same relative paths as their coslam_tpu counterparts (the ports of the
+root entry points under coslam_tpu_torch/).  The dataset front end
+(utils/io.py, cli.py, viz/) imports Pillow only where it reads or draws an
+image, as the reference does."""
 
 import os
 import subprocess
@@ -24,6 +25,11 @@ SLICE = ["config.py", "utils/geometry.py", "utils/camera.py",
          "native/__init__.py", "cli.py", "parallel/mesh.py",
          "parallel/exchange.py", "parallel/sharded_ba.py", "viz/__init__.py",
          "viz/frame_drawer.py", "viz/map_drawer.py", "viz/viewer.py"]
+# the port's modules of the reference's measurement entry points at the
+# repo root (port path -> reference path), and the port's own root scripts
+ROOT_PORTS = {"entry.py": "__graft_entry__.py", "bench.py": "bench.py",
+           "bench_scaling.py": "bench_scaling.py"}
+ROOT_SCRIPTS = ["chip_smoke.py", "bench_torch.py"]
 
 LOOP_MODULES = ["coslam_tpu_torch.ops.sim3",
                 "coslam_tpu_torch.optim.pose_graph",
@@ -37,7 +43,7 @@ names = [m.name for m in pkgutil.walk_packages(coslam_tpu_torch.__path__,
                                                 "coslam_tpu_torch.")]
 for name in names:
     importlib.import_module(name)
-import chip_smoke
+import bench_torch, chip_smoke
 assert not any(k == "jax" or k.startswith(("jax.", "coslam_tpu."))
                for k in sys.modules if sys.modules[k] is not None)
 print(len(names))
@@ -48,13 +54,19 @@ def test_every_module_imports_without_jax():
     out = subprocess.run([sys.executable, "-c", _IMPORT_ALL], cwd=ROOT,
                          capture_output=True, text=True, timeout=300)
     assert out.returncode == 0, out.stderr
-    assert int(out.stdout.strip().splitlines()[-1]) >= len(SLICE) + 5
+    assert int(out.stdout.strip().splitlines()[-1]) \
+        >= len(SLICE) + len(ROOT_PORTS) + 5
 
 
 def test_slice_modules_mirror_the_reference_layout():
     for rel in SLICE:
         assert os.path.isfile(os.path.join(ROOT, "coslam_tpu", rel)), rel
         assert os.path.isfile(os.path.join(ROOT, "coslam_tpu_torch", rel)), rel
+    for port, ref in ROOT_PORTS.items():
+        assert os.path.isfile(os.path.join(ROOT, ref)), ref
+        assert os.path.isfile(os.path.join(ROOT, "coslam_tpu_torch", port))
+    for rel in ROOT_SCRIPTS:
+        assert os.path.isfile(os.path.join(ROOT, rel)), rel
     for name in ("fast_score_nms.cu", "masked_match.cu", "pose_opt_lm.cu"):
         assert os.path.isfile(os.path.join(ROOT, "coslam_tpu_torch", "csrc",
                                            name))
