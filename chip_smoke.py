@@ -5,10 +5,11 @@
 It needs, beside itself, the repository's `coslam_tpu_torch/` package with
 its `assets/` (the JAX package's reference runs, written by
 scripts/make_torch_smoke_assets.py), the CUDA sources under
-`coslam_tpu_torch/csrc/`, which it builds with nvcc, and the shipped
-vocabulary `coslam_tpu/assets/vocab.npz`, read as data; it checks that they
-are there before anything else and names what is missing.  It imports
-nothing of JAX or of the JAX package.
+`coslam_tpu_torch/csrc/`, which it builds with nvcc, and the port's shipped
+vocabulary `coslam_tpu_torch/assets/vocab.npz` (a copy of the JAX
+package's); it checks that they are there before anything else and names
+what is missing.  It imports nothing of JAX or of the JAX package and
+reads no file under `coslam_tpu/`.
 
 Phases (each prints its lines; any failure exits non-zero before the result
 lines):
@@ -75,9 +76,12 @@ lines):
      enable_loop_closing=True)` resumes the JAX run's checkpoint of frame 69
      (coslam_tpu_torch/assets/smoke_loop_resume.npz, with its trajectory
      log) and `run_sequence` takes frames 70-114, then the same with loop
-     closing off.  Checks 0 lost frames, a loop closed within 3 keyframes of
-     the JAX run's closing keyframe, ATE over the whole trajectory at most
-     0.01 above the JAX run's and below the run's without loop closing;
+     closing off, both under deterministic algorithms with the mapper
+     cycle pinned at the JAX run's own (MAPPER_CYCLE_S; the InterruptBA
+     window otherwise reads the host's clock).  Checks 0 lost frames, a
+     loop closed within 3 keyframes of the JAX run's closing keyframe, ATE
+     over the whole trajectory at most 0.01 above the JAX run's and below
+     the run's without loop closing;
      (c) from the first frame, with and without loop closing, under
      deterministic algorithms with the mapper cycle pinned
      (MAPPER_CYCLE_S).  The port's run parts ways with the JAX run
@@ -248,6 +252,40 @@ lines):
      an NCCL group of world size 1 in this process, under deterministic
      algorithms: max pose difference 0; prints ms per LM iteration.
 
+ 14. scripts (the ports of the JAX side's scripts, coslam_tpu_torch/
+     scripts/, against those scripts run on the CPU:
+     coslam_tpu_torch/assets/smoke_scripts_expected.npz, written by
+     scripts/make_torch_smoke_assets.py --scripts-only): (a) train_vocab's
+     harvest on the first frame of each of its five jobs (640x480, 1000
+     features): valid masks equal, >= 99.9% of descriptor bits; (b)
+     `bow.train_vocabulary_device` at the script's full size (the JAX run's
+     65536-descriptor pool, 8192 words, 12 iterations, its PRNGKey(0)
+     permutation injected): words bit-equal, ms per iteration (CUDA
+     events) beside the bound; (c) the whole `train_vocab` on the card
+     with its own draws, written to a temporary directory: K1 once a
+     harvested frame; prints harvest seconds, training ms and the
+     occupancy beside the JAX run's; (d) `pr_quality.score_queries` on the
+     JAX run's end state of cylinder-A (its System saved by
+     checkpoint.save_system, loaded by `load_system`): keyframes, stats
+     and per-query rows equal, BoW scores within 1e-6; (e) pr_quality's
+     cylinder-A from the first frame on the card (140 frames, per-frame
+     `track_mono`, the cadence AUTO), printed beside the JAX run's and
+     gated only on running to the end with K1-K3 launched; (f)
+     `make_proxy_datasets` at SCRIPTS_PROXY_FRAMES frames (a cut: the
+     script's default is 120, whose rendering alone takes ~90 s on the
+     host): text files byte-equal to the JAX script's and every image's
+     decoded sha256 equal, then `run_results.run_one` for its four runs,
+     one repetition each, in four subprocesses side by side on the card
+     (their launches are not counted; phase 12 counts the dataset modes):
+     rc 0 and ATE under the script's bound; (g) `debug_coop.run` on the
+     card: the bars of the JAX test it reproduces
+     (tests/test_cooperative.py::test_two_agent_continued_correction:
+     agent 0 OK after its 38 frames, agent 1 OK at the end, >= 2 merges),
+     `probe` run on the foreign keyframes after the first, K1-K3 launched;
+     the joint ATE is printed beside that test's 0.3 m bar and the JAX
+     run's, not gated (it follows chaotic decisions: 0.09-0.30 on the card,
+     0.14-0.64 in the JAX package with other draws; PERF.md, Findings).
+
 The second-to-last line is a JSON object with each kernel's launches (in
 the mapping run; `launches_by_path` and `launches_per_frame` have every
 path's run), error, times and bound.  K2's and K3's headline numbers are those of
@@ -290,10 +328,10 @@ LOOP_ATE_BAR = 0.04
 # (`System._mapper_busy_frames`, from the host's wall clock even with the
 # throttle pinned), and `index_add_` on the card sums in the order its
 # atomics land.  Unpinned, a slow host's runs failed the gates of phase 6
-# (c) and 7 that a fast host's passed (PERF.md, Findings).  The runs
-# that phases 6 (c), 7 and 8 gate therefore pin both, so that one card and
-# one software stack give one outcome: deterministic algorithms, and the
-# mapper cycle at these seconds (pin_mapper_cycle).  The JAX stereo run
+# (b), (c) and 7 that a fast host's passed (PERF.md, Findings).  The runs
+# that phases 6 (b), 6 (c), 7 and 8 gate therefore pin both, so that one
+# card and one software stack give one outcome: deterministic algorithms,
+# and the mapper cycle at these seconds (pin_mapper_cycle).  The JAX stereo run
 # measured 0.39-0.52 s on its CPU host (4-6 frames at KITTI's 10 frames/s),
 # the card 0.1-0.2 s, so it truncated more local BAs than the card does:
 # pinned at 0.1 or 0.15 s the stereo run made 12 keyframes against the JAX
@@ -301,9 +339,16 @@ LOOP_ATE_BAR = 0.04
 # take 1.0 s.  The loop run parts from its JAX run at frame 1 and cannot
 # follow it: it takes the System's own prior of 0.1 s, 3 frames at 30
 # frames/s, inside the pinned throttle (at 1.0 s it drifted to ATE 0.186).
-MAPPER_CYCLE_S = {"loop": 0.1, "stereo": 1.0, "rgbd": 1.0, "coop": 0.1,
-                  "tum_mono": 0.1, "tum_rgbd": 1.0, "kitti_stereo": 1.0,
-                  "euroc_mono": 0.1}
+# The run resumed from the JAX run's checkpoint of frame 69 (phase 6 (b))
+# does follow it, and takes the JAX run's own cycle: 0.353 s, 11 frames,
+# so that every insert after the checkpoint is truncated in both
+# (scripts/trace_loop_cycle.py).  Measured on the host's clock, a slow
+# host's run failed the ATE gate by 5e-5 that fast hosts' passed by 2e-4;
+# pinned, six plain runs gave 0.104-0.111 and two deterministic ones
+# 0.11030 against the bar of 0.11670 (PERF.md, Findings).
+MAPPER_CYCLE_S = {"loop": 0.1, "loop_resumed": 0.35, "stereo": 1.0,
+                  "rgbd": 1.0, "coop": 0.1, "tum_mono": 0.1, "tum_rgbd": 1.0,
+                  "kitti_stereo": 1.0, "euroc_mono": 0.1}
 TPU_KERNELS = "coslam_tpu/ops/pallas_kernels.py"
 # The JAX run's initialisation frame is decided by f32 rounding: at its
 # frame 13 the winning F hypothesis leads the runner-up by less than the
@@ -337,7 +382,8 @@ COOP_ATE_BAR = 0.3                 # and below the CLI's own bar
 COOP_INIT_WINDOW = 1               # initialisation frames within 1 of JAX's
 # what the script reads beside itself (the kernels' sources and the JAX
 # package's reference runs)
-NEEDS = (["coslam_tpu_torch/__init__.py", "coslam_tpu/assets/vocab.npz"]
+NEEDS = (["coslam_tpu_torch/__init__.py",
+          "coslam_tpu_torch/assets/vocab.npz"]
          + [f"coslam_tpu_torch/csrc/{n}" for n in
             ("fast_score_nms.cu", "masked_match.cu", "pose_opt_lm.cu")]
          + [f"coslam_tpu_torch/assets/{n}.npz" for n in
@@ -347,7 +393,8 @@ NEEDS = (["coslam_tpu_torch/__init__.py", "coslam_tpu/assets/vocab.npz"]
              "smoke_rgbd_expected", "smoke_vocab_expected",
              "smoke_coop_merge", "smoke_coop_expected",
              "smoke_multichip_expected", "smoke_multichip_state",
-             "smoke_dataset_expected", "smoke_bench_expected")])
+             "smoke_dataset_expected", "smoke_bench_expected",
+             "smoke_scripts_expected")])
 # Published peaks of one H100 SXM: f32 outside the tensor cores (integer
 # operations are counted at the same rate) and device memory.
 PEAK_OPS_PER_S = 67e12
@@ -1261,7 +1308,8 @@ def phase_loop_run(card: str):
             first = LOOP_SPLIT
         else:
             s.init_draws = draws
-            pin_mapper_cycle(s, MAPPER_CYCLE_S["loop"])
+        pin_mapper_cycle(
+            s, MAPPER_CYCLE_S["loop_resumed" if resumed else "loop"])
         torch.cuda.synchronize()
         ck.reset_launch_counts()
         with EventTimer(lc, "correct_loop") as timers["correct_loop"], \
@@ -1335,12 +1383,15 @@ def phase_loop_run(card: str):
             f"{[k for k, c in zip(t_on.k2, closed) if c]}")
 
     # ---- (b) the revisit, resumed from the JAX run's checkpoint
-    off = run(False, True)
-    on = run(True, True)
+    with DeterministicAlgorithms():
+        off = run(False, True)
+        on = run(True, True)
     f = closure_facts(on)
     print(f"[loop b] the JAX run's checkpoint of frame {LOOP_SPLIT - 1} "
           f"resumed, frames {LOOP_SPLIT}-{LOOP_FRAMES - 1} with loop closing "
-          f"on: lost 0, keyframes {int(f['kf_valid'].sum())}; {f['what']}; "
+          f"on, mapper cycle pinned at {MAPPER_CYCLE_S['loop_resumed']} s, "
+          f"deterministic algorithms: lost 0, keyframes "
+          f"{int(f['kf_valid'].sum())}; {f['what']}; "
           f"ATE over all {len(on['ids'])} poses {on['ate']:.5f} (JAX "
           f"{ate_jax:.5f}; the same run without loop closing "
           f"{off['ate']:.5f}); launches {on['launches']}", flush=True)
@@ -2991,6 +3042,252 @@ def phase_bench(card: str):
             BENCH_FRAMES * (1 + BENCH_REPEATS))
 
 
+SCRIPTS_PROXY_FRAMES = 60          # phase 14 (f): of the script's 120
+SCRIPTS_KMEANS_ITERS = 12          # phase 14 (b): train_vocab's --iters
+
+
+def proxy_texts(root: str) -> dict:
+    """{path relative to root: bytes} of every file under `root` that is
+    not an image."""
+    out = {}
+    for d, _, names in os.walk(root):
+        for n in names:
+            if not n.endswith(".png"):
+                p = os.path.join(d, n)
+                with open(p, "rb") as f:
+                    out[os.path.relpath(p, root)] = f.read()
+    return dict(sorted(out.items()))
+
+
+def proxy_image_hashes(root: str) -> dict:
+    """{path relative to root: sha256 of the decoded pixels, with their
+    dtype and shape} of every image under `root` (PNG bytes may differ
+    between Pillow versions; pixels may not)."""
+    import hashlib
+    from PIL import Image
+    out = {}
+    for d, _, names in os.walk(root):
+        for n in names:
+            if n.endswith(".png"):
+                p = os.path.join(d, n)
+                with Image.open(p) as im:
+                    a = np.ascontiguousarray(np.asarray(im))
+                h = hashlib.sha256(f"{a.dtype} {a.shape}".encode())
+                h.update(a.tobytes())
+                out[os.path.relpath(p, root)] = h.hexdigest()
+    return dict(sorted(out.items()))
+
+
+def phase_scripts(card: str):
+    """Phase 14: the ports of the JAX side's scripts
+    (coslam_tpu_torch/scripts/) against the JAX scripts' runs on the CPU
+    (coslam_tpu_torch/assets/smoke_scripts_expected.npz).  Returns the
+    kernels' launches on the harvest of (c), the place-recognition run of
+    (e) and the two-agent run of (g), with their frame counts."""
+    from coslam_tpu_torch.models.system import System
+    from coslam_tpu_torch.ops import bow
+    from coslam_tpu_torch.ops import cuda_kernels as ck
+    from coslam_tpu_torch.scripts import (debug_coop, make_proxy_datasets,
+                                          pr_quality, run_results,
+                                          train_vocab)
+    from coslam_tpu_torch.utils import checkpoint, synthetic
+
+    ex = np.load(os.path.join(ASSETS, "smoke_scripts_expected.npz"))
+    dev = torch.device(DEV)
+
+    # (a) the first frame of each harvest job at full width
+    cfg = train_vocab.harvest_config()
+    jobs = train_vocab.harvest_jobs()
+    agree = []
+    for j, (scene, traj) in enumerate(jobs):
+        d, v = train_vocab.job_descriptors(
+            cfg, scene, synthetic.Trajectory(traj.poses_cw[:1]), 1, dev)
+        d, v = d[0].cpu().numpy(), v[0].cpu().numpy()
+        check(np.array_equal(v, ex["tv_first_valid"][j]),
+              f"scripts a: job {j}'s valid mask differs from the JAX run's")
+        agree.append(float((_desc_bits(d[v]) == _desc_bits(
+            ex["tv_first_desc"][j].view(np.int32)[v])).mean()))
+    check(min(agree) >= 0.999, f"scripts a: descriptor bits equal {agree}")
+    print(f"[scripts a] train_vocab harvest, first frame of each of the "
+          f"{len(jobs)} jobs ({cfg.camera.width}x{cfg.camera.height}, "
+          f"{cfg.extractor.n_features} features): valid masks equal the JAX "
+          f"run's, descriptor bits equal {[round(a, 6) for a in agree]}",
+          flush=True)
+
+    # (b) k-means at the script's full size on the JAX run's pool
+    pool = torch.from_numpy(ex["tv_pool"].view(np.int32)).to(dev)
+    n, W = pool.shape[0], int(ex["tv_words"].shape[0])
+    ones = torch.ones(n, dtype=torch.bool, device=dev)
+    perm = torch.from_numpy(ex["tv_perm"].astype(np.int64)).to(dev)
+
+    def kmeans():
+        return bow.train_vocabulary_device(pool, ones, W,
+                                           SCRIPTS_KMEANS_ITERS, perm=perm)
+
+    words = kmeans().cpu().numpy().view(np.uint32)
+    check(np.array_equal(words, ex["tv_words"]),
+          f"scripts b: {int((words != ex['tv_words']).any(1).sum())} of {W} "
+          "words differ from the JAX run's")
+    km_ms = time_cuda(kmeans, reps=2, warmup=1)
+    # per iteration: the (n, W) 0/1 matmul over 256 bits
+    b_ms, b_by = bound(2.0 * n * W * 256, n * 32 + W * 32)
+    print(f"[scripts b] train_vocabulary_device on the JAX run's pool "
+          f"({n} descriptors, {W} words, {SCRIPTS_KMEANS_ITERS} iterations, "
+          f"its PRNGKey(0) permutation injected): words bit-equal to the JAX "
+          f"run's; {km_ms / SCRIPTS_KMEANS_ITERS:.3f} ms per iteration "
+          f"(CUDA events), bound {b_ms:.3f} ms ({b_by}) | {card}",
+          flush=True)
+
+    # (c) the whole script on the card, its own draws, into a temporary file
+    ck.reset_launch_counts()
+    with tempfile.TemporaryDirectory(prefix="coslam_vocab_") as d:
+        res = train_vocab.train_vocab(device=DEV,
+                                      out=os.path.join(d, "vocab.npz"))
+    harvest_l = dict(ck.LAUNCHES)
+    n_harvest = sum(len(t.poses_cw[::2]) for _, t in jobs)
+    occ = res["occupancy"]
+    check(harvest_l["fast_score_nms"] == n_harvest,
+          f"scripts c: K1 launched {harvest_l} for {n_harvest} frames")
+    print(f"[scripts c] train_vocab on the card: harvested "
+          f"{res['n_harvested']} descriptors of {n_harvest} frames in "
+          f"{res['harvest_s']:.1f} s (JAX run on a CPU: "
+          f"{int(ex['tv_n_harvested'])} in {float(ex['tv_harvest_s']):.0f} "
+          f"s), trained on {res['n_pool']} in {res['train_ms']:.1f} ms; "
+          f"occupied {int((occ > 0).sum())}/{W}, max bucket "
+          f"{int(occ.max())} (JAX run with its own draws: "
+          f"{int(ex['tv_occupied'])}/{W}, "
+          f"{int(ex['tv_max_bucket'])}); launches {harvest_l} | {card}",
+          flush=True)
+
+    # (d) score_queries on the JAX run's end state of cylinder-A
+    pq_cfg = pr_quality.cfg_for(320, 240)
+    n_pr = int(ex["pr_frames"])
+    with tempfile.TemporaryDirectory(prefix="coslam_pr_") as d:
+        path = os.path.join(d, "system.npz")
+        np.savez(path, **{k[8:]: ex[k] for k in ex.files
+                          if k.startswith("pr_ckpt_")})
+        slam = System(pq_cfg, device=DEV, enable_loop_closing=False)
+        checkpoint.load_system(path, slam)
+    K, stats, rows = pr_quality.score_queries(pq_cfg, slam, n_pr)
+    want = dict(zip([str(k) for k in ex["pr_stat_keys"]],
+                    ex["pr_stats"].tolist()))
+    got_rows = np.asarray([r[:4] for r in rows], np.int64).reshape(-1, 4)
+    got_top3 = np.asarray([r[4] for r in rows], np.int64).reshape(-1, 3)
+    score = np.asarray([r[5] for r in rows], np.float64)
+    gt_score = np.asarray([slam.db.scores_against_all(r[0])[r[2]]
+                           for r in rows], np.float64)
+    check(K == int(ex["pr_K"]) and stats == want,
+          f"scripts d: {K} keyframes, stats {stats}; JAX {int(ex['pr_K'])}, "
+          f"{want}")
+    check(np.array_equal(got_rows, ex["pr_rows"])
+          and np.array_equal(got_top3, ex["pr_top3"]),
+          "scripts d: per-query rows differ from the JAX run's")
+    err = float(np.abs(np.concatenate([score - ex["pr_score"],
+                                       gt_score - ex["pr_gt_score"]])).max()
+                ) if len(rows) else 0.0
+    check(err <= 1e-6, f"scripts d: BoW scores off by {err}")
+    del slam
+    print(f"[scripts d] pr_quality.score_queries on the JAX run's cylinder-A "
+          f"end state ({K} keyframes): {stats['n_q']} queries, stats and "
+          f"per-query rows equal the JAX run's, BoW scores within {err:.1e}",
+          flush=True)
+
+    # (e) cylinder-A from the first frame on the card
+    name, scene, traj, n_e, cfg_e = pr_quality.scenes()[0]
+    ck.reset_launch_counts()
+    t0 = time.perf_counter()
+    slam = pr_quality.run_scene(name, scene, traj, n_e, cfg_e, DEV)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    pr_l = dict(ck.LAUNCHES)
+    K, stats, rows = pr_quality.score_queries(cfg_e, slam, n_e)
+    lost = sum(1 for st in slam.stats if st.get("lost"))
+    nq = max(stats["n_q"], 1)
+    del slam
+    print(f"[scripts e] pr_quality {name} from the first frame ({n_e} "
+          f"frames, per-frame track_mono, cadence AUTO): {K} keyframes, "
+          f"{lost} lost, {stats['n_q']} queries, recall@1/3/8 "
+          f"{stats['rec1'] / nq:.2f}/{stats['rec3'] / nq:.2f}/"
+          f"{stats['rec8'] / nq:.2f}, {n_e / wall:.2f} frames/s with the "
+          f"render (JAX run on a CPU: {int(ex['pr_K'])} keyframes, "
+          f"{int(ex['pr_lost'])} lost, {want['n_q']} queries, recall@1/3/8 "
+          f"{want['rec1'] / max(want['n_q'], 1):.2f}/"
+          f"{want['rec3'] / max(want['n_q'], 1):.2f}/"
+          f"{want['rec8'] / max(want['n_q'], 1):.2f}); launches {pr_l} | "
+          f"{card}", flush=True)
+    check(all(v > 0 for v in pr_l.values()),
+          f"scripts e: a kernel was not launched: {pr_l}")
+
+    # (f) proxy datasets, then the dataset CLI on each
+    with tempfile.TemporaryDirectory(prefix="coslam_proxies_") as d:
+        t0 = time.perf_counter()
+        make_proxy_datasets.make_all(d, SCRIPTS_PROXY_FRAMES, 11, None, DEV)
+        make_s = time.perf_counter() - t0
+        texts, images = proxy_texts(d), proxy_image_hashes(d)
+        sizes = ex["px_text_sizes"]
+        blob = ex["px_text_bytes"].tobytes()
+        want_texts = dict(zip([str(x) for x in ex["px_text_names"]],
+                              [blob[a - s:a] for a, s in
+                               zip(np.cumsum(sizes), sizes)]))
+        check(texts == want_texts,
+              "scripts f: text files differ from the JAX script's: "
+              + str([k for k in sorted(set(texts) | set(want_texts))
+                     if texts.get(k) != want_texts.get(k)][:5]))
+        want_images = dict(zip([str(x) for x in ex["px_image_names"]],
+                               [str(x) for x in ex["px_image_sha256"]]))
+        check(images == want_images,
+              "scripts f: decoded images differ from the JAX script's: "
+              + str([k for k in sorted(set(images) | set(want_images))
+                     if images.get(k) != want_images.get(k)][:5]))
+        out_dir = os.path.join(d, "results")
+        os.makedirs(out_dir)
+        # the four runs are processes of their own: run them side by side
+        from concurrent.futures import ThreadPoolExecutor
+        t0 = time.perf_counter()
+        with ThreadPoolExecutor(len(run_results.RUNS)) as pool:
+            done = list(pool.map(lambda spec: run_results.run_one(
+                spec, d, out_dir, DEV), run_results.RUNS))
+        runs_s = time.perf_counter() - t0
+        runs = []
+        for spec, r in zip(run_results.RUNS, done):
+            print(f"[scripts f] {spec['name']}: rc {r['rc']}, ATE "
+                  f"{r.get('ate_cm')} cm (bound {spec['bound_cm']} cm), "
+                  f"{r.get('tracked')}, {r['wall_s']} s in its process | "
+                  f"{card}", flush=True)
+            check(r["rc"] == 0, f"scripts f: {spec['name']} exited "
+                  f"{r['rc']}: {r.get('stderr_tail', '')}")
+            runs.append(run_results.combine([r]))
+        bad = run_results.failed(runs)
+        check(not bad, "scripts f: over the bound: "
+              + str([(r["spec"]["name"], r.get("ate_cm")) for r in bad]))
+    print(f"[scripts f] make_proxy_datasets at {SCRIPTS_PROXY_FRAMES} frames "
+          f"in {make_s:.1f} s: {len(texts)} text files byte-equal to the JAX "
+          f"script's, {len(images)} images' decoded sha256 equal; "
+          f"run_results.run_one for its four runs side by side in "
+          f"{runs_s:.1f} s, each under its bound", flush=True)
+
+    # (g) the instrumented two-agent run
+    ck.reset_launch_counts()
+    res = debug_coop.run(DEV)
+    coop_l = dict(ck.LAUNCHES)
+    check(res["states"] == ("OK", "OK"),
+          f"scripts g: agent states {res['states']}, not both OK")
+    check(res["merges"] >= 2, f"scripts g: {res['merges']} merges, the "
+          f"JAX test's bar is 2: {res}")
+    check(len(res["probed"]) >= 1,
+          f"scripts g: no foreign keyframe probed after the merge: {res}")
+    check(all(v > 0 for v in coop_l.values()),
+          f"scripts g: a kernel was not launched: {coop_l}")
+    print(f"[scripts g] debug_coop: merges {res['merges']}, events "
+          f"{res['events']}, probed keyframes {res['probed']}, joint ATE "
+          f"{res['ate']:.4f} (the JAX test's bar 0.3, not gated; JAX run on "
+          f"a CPU: {str(ex['dc_final'])}); "
+          f"launches {coop_l} | {card}", flush=True)
+    return {"vocab_harvest": (harvest_l, n_harvest),
+            "place_recognition": (pr_l, n_e),
+            "debug_coop": (coop_l, res["frames"])}
+
+
 def preflight() -> None:
     """Fail at once, naming it, if what the script reads beside itself is
     missing (it was copied out of the repository alone)."""
@@ -2998,7 +3295,7 @@ def preflight() -> None:
     check(not missing, f"{len(missing)} files missing beside chip_smoke.py "
           f"in {ROOT}: {', '.join(missing)} — run it from a checkout of the "
           "repository (it needs the coslam_tpu_torch package with its "
-          "assets/ and csrc/, and coslam_tpu/assets/vocab.npz)")
+          "assets/, its vocabulary and csrc/)")
 
 
 def main() -> int:
@@ -3059,6 +3356,8 @@ def main() -> int:
     lap("datasets")
     hot_l, hot_pf, full_l, n_full = phase_bench(card)
     lap("bench")
+    scripts_l = phase_scripts(card)
+    lap("scripts")
     check("jax" not in sys.modules, "jax was imported")
     print("[time] seconds per phase after the card and the build: "
           + ", ".join(f"{b[0]} {b[1] - a[1]:.1f}"
@@ -3083,14 +3382,18 @@ def main() -> int:
                                  "multichip": mc_l[r["name"]],
                                  "datasets": ds_l[r["name"]],
                                  "hot_path": hot_l[r["name"]],
-                                 "full_system": full_l[r["name"]]}
+                                 "full_system": full_l[r["name"]],
+                                 **{k: v[r["name"]] for k, (v, _) in
+                                    scripts_l.items()}}
         # per tracked frame of the localization slice, per input frame of
         # the mapping run (initialisation and backend inserts included) and
         # of the kidnap (grey frames and relocalization attempts included)
         # and of the loop run (loop closing on), and per input frame of the
         # four gated dataset runs (re-tracked frames and inserts included);
         # per frame of the hot path's graph as captured, and per input
-        # frame of the full System bench's runs (its first run included)
+        # frame of the full System bench's runs (its first run included);
+        # per harvested frame of train_vocab, per frame of pr_quality's
+        # cylinder-A and per frame tracked by either agent of debug_coop
         r["launches_per_frame"] = {
             "localization": loc_launches[r["name"]] / n_loc,
             "mapping": map_launches[r["name"]] / MAPPING_FRAMES,
@@ -3102,7 +3405,8 @@ def main() -> int:
             "multichip": mc_l[r["name"]] / n_mc,
             "datasets": ds_l[r["name"]] / n_ds,
             "hot_path": hot_pf[r["name"]],
-            "full_system": full_l[r["name"]] / n_full}
+            "full_system": full_l[r["name"]] / n_full,
+            **{k: v[r["name"]] / n for k, (v, n) in scripts_l.items()}}
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -8,8 +8,10 @@ one (N, W) Hamming argmin, computed as the exact +/-1 matmul
 BoW vectors are dense (W,) L1-normalized tf weights; similarity is the
 DBoW2 L1 score s(v, w) = 1 - 0.5 * |v - w|_1.
 
-The vocabulary file is the one the JAX package ships
-(`coslam_tpu/assets/vocab.npz`), read as data.  Without it the vocabulary
+The vocabulary file is the port's own `coslam_tpu_torch/assets/vocab.npz`,
+a byte-for-byte copy of the one the JAX package ships
+(`coslam_tpu_torch.scripts.train_vocab` trains a new one into that path).
+Without it the vocabulary
 is trained online by binary k-means (majority-bit medoids):
 `train_vocabulary` on the host in numpy, `train_vocabulary_device` on the
 System's device, where the (n, W) assignment is one f32 matmul of 0/1 bits
@@ -30,8 +32,7 @@ import torch
 
 from coslam_tpu_torch.ops import hamming
 
-_REPO = os.path.dirname(os.path.dirname(os.path.dirname(
-    os.path.abspath(__file__))))
+_PACKAGE = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 
 # ---------------------------------------------------------------------------
@@ -158,7 +159,7 @@ def bow_rows(kf_desc: torch.Tensor, kf_kp_valid: torch.Tensor,
 
 
 def pretrained_vocabulary_path() -> str:
-    return os.path.join(_REPO, "coslam_tpu", "assets", "vocab.npz")
+    return os.path.join(_PACKAGE, "assets", "vocab.npz")
 
 
 @functools.lru_cache(maxsize=1)

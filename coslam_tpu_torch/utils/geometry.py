@@ -183,6 +183,26 @@ def quat_to_rot(q: torch.Tensor) -> torch.Tensor:
     ], dim=-2)
 
 
+def _norm4(q: torch.Tensor) -> torch.Tensor:
+    """|q| over the last axis, (..., 1).  In float32 the squares are summed
+    in order, each product added in float64 (where a product of two
+    float32 is exact) and the sum rounded to float32 at every step: a
+    model of the fused multiply-add chain that XLA's CPU backend was found
+    to use, fitted by measurement, not derived from XLA.  It holds where
+    it was measured: on the synthetic trajectories' rotations it gives the
+    reference's quaternions bit for bit (a plain float32 sum does not).
+    On random rotations it still differs in the last bits for ~0.7% (1-2
+    ulp, cause untraced), against ~12% for a plain float32 sum."""
+    if q.dtype != torch.float32:
+        return torch.linalg.vector_norm(q, dim=-1, keepdim=True)
+    d = q.to(torch.float64)
+    acc = (d[..., 0] * d[..., 0]).to(torch.float32)
+    for i in range(1, q.shape[-1]):
+        acc = (d[..., i] * d[..., i] + acc.to(torch.float64)) \
+            .to(torch.float32)
+    return torch.sqrt(acc)[..., None]
+
+
 def rot_to_quat(R: torch.Tensor) -> torch.Tensor:
     """Rotation (..., 3, 3) -> unit quaternion (..., 4) as (w, x, y, z):
     Shepperd's method, branchless (the reference's `rot_to_quat`)."""
@@ -193,7 +213,7 @@ def rot_to_quat(R: torch.Tensor) -> torch.Tensor:
 
     def norm4(w, x, y, z):
         q = torch.stack([w, x, y, z], dim=-1)
-        return q / (torch.linalg.vector_norm(q, dim=-1, keepdim=True) + _EPS)
+        return q / (_norm4(q) + _EPS)
 
     # four candidate decompositions; pick the numerically best
     s0 = torch.sqrt(torch.clamp(1.0 + tr, min=_EPS)) * 2

@@ -104,6 +104,19 @@ Runs the JAX package (`coslam_tpu`) on the CPU:
      pt_pos, and the frame's true pose as T_pred.  Writes
      `smoke_bench_expected.npz`: both cases' inputs, (T, n_inliers, desc),
      the frame's valid mask and the two prefixes' counts.
+  12. the JAX side's scripts (scripts/*.py, loaded as modules; nothing of
+     them is changed): (a)-(c) `train_vocab.main` at its defaults with its
+     output file redirected into a temporary directory — the first frame of
+     each harvest job (descriptors, validity), the harvested count, the
+     subsampled pool of 65536, its `PRNGKey(0)` permutation, the 8192
+     trained words and the printed occupancy; (d)-(e) `pr_quality.run_scene`
+     on cylinder-A (320x240, 400 features, 140 frames), its System captured
+     and saved with `checkpoint.save_system` (keys `pr_ckpt_*`), the stats,
+     the per-query rows and the unrounded BoW score of each row's ground
+     truth; (f) `make_proxy_datasets` at chip_smoke.SCRIPTS_PROXY_FRAMES
+     frames: every text file's bytes and every image's decoded sha256; (g)
+     `debug_coop.main`'s `final:` line and first probe line.  Writes
+     `smoke_scripts_expected.npz`.
 
 The workload is the bench's (bench.py:140-160: 640x480, 1000 features,
 max_keypoints=1024, make_scene(600, seed=3), make_trajectory(360, seed=3))
@@ -114,13 +127,13 @@ depend on host speed; the localization map uses the default capacity
     JAX_PLATFORMS=cpu python scripts/make_torch_smoke_assets.py \
         [--mapping-only | --reloc-only | --loop-only | --stereo-only |
          --rgbd-only | --vocab-only | --coop-only | --datasets-only |
-         --bench-only]
+         --bench-only | --scripts-only]
 
 --mapping-only rebuilds steps 3 and 4, --reloc-only step 4 alone (it still
 runs step 3's mapping, without writing its file), --loop-only step 5 alone
 (~4 min), --stereo-only step 6, --rgbd-only step 7, --vocab-only step 8,
 --coop-only step 9 (~2 min), --datasets-only step 10, --bench-only step
-11 (~20 s).
+11 (~20 s), --scripts-only step 12.
 """
 
 from __future__ import annotations
@@ -1171,6 +1184,182 @@ def dataset_reference(out_dir: str = ASSETS) -> None:
     np.savez_compressed(os.path.join(out_dir, DATASET_ASSET), **arrays)
 
 
+SCRIPTS_ASSET = "smoke_scripts_expected.npz"
+# first strided frame of each harvest job of scripts/train_vocab.py (jobs of
+# 48, 48, 48, 64 and 64 frames, every second one)
+HARVEST_FIRST = (0, 24, 48, 72, 104)
+
+
+def jax_script(name: str):
+    """The JAX side's scripts/<name>.py as a module of its own name
+    `jax_script_<name>` (its import-time settings pin JAX to the CPU, as
+    this run is already)."""
+    import importlib.util
+    spec = importlib.util.spec_from_file_location(
+        f"jax_script_{name}", os.path.join(ROOT, "scripts", f"{name}.py"))
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def _stdout_of(fn, *args):
+    import contextlib
+    import io
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        ret = fn(*args)
+    print(buf.getvalue(), end="")
+    return ret, buf.getvalue()
+
+
+def train_vocab_reference(tmp: str) -> dict:
+    """Step 12 (a)-(c): scripts/train_vocab.py's `main` at its defaults,
+    its output file redirected into `tmp` (the JAX package's own
+    assets/vocab.npz is not touched)."""
+    import re
+    import coslam_tpu.models.frame as jframe
+    jtv = jax_script("train_vocab")
+    frames, pools, calls = {}, [], [0]
+    inner_build, inner_harvest = jframe.build_frame, jtv.harvest
+
+    def build(img, cfg):
+        f = inner_build(img, cfg)
+        if calls[0] in HARVEST_FIRST:
+            frames[calls[0]] = jax.device_get((f.desc, f.valid))
+        calls[0] += 1
+        return f
+
+    def harvest():
+        pools.append(inner_harvest())
+        return pools[0]
+
+    jframe.build_frame, jtv.harvest, jtv.ROOT = build, harvest, tmp
+    argv, sys.argv = sys.argv, ["train_vocab.py"]
+    try:
+        _, log = _stdout_of(jtv.main)
+    finally:
+        jframe.build_frame, sys.argv = inner_build, argv
+    pool = pools[0]
+    rng = np.random.default_rng(0)
+    sub = pool[rng.choice(pool.shape[0], 65536, replace=False)]
+    with np.load(os.path.join(tmp, "coslam_tpu", "assets", "vocab.npz")) as z:
+        words = z["words"]
+    occ = re.search(r"occupied (\d+)/\d+, max bucket (\d+)", log)
+    secs = re.search(r"\((\d+)s\)", log)
+    assert calls[0] == 136, calls
+    first = [frames[i] for i in HARVEST_FIRST]
+    return {"tv_first_desc": np.stack([d for d, _ in first]),
+            "tv_first_valid": np.stack([v for _, v in first]),
+            "tv_n_harvested": np.int64(pool.shape[0]),
+            "tv_pool": sub,
+            "tv_perm": np.asarray(jax.random.permutation(
+                jax.random.PRNGKey(0), sub.shape[0]), np.int32),
+            "tv_words": words,
+            "tv_occupied": np.int32(occ.group(1)),
+            "tv_max_bucket": np.int32(occ.group(2)),
+            "tv_harvest_s": np.float64(secs.group(1))}
+
+
+def pr_quality_config() -> SystemConfig:
+    """scripts/pr_quality.py's `cfg_for(320, 240)` (a closure there)."""
+    return SystemConfig(
+        camera=CameraConfig(fx=300, fy=300, cx=160.0, cy=120.0, width=320,
+                            height=240),
+        extractor=ExtractorConfig(n_features=400, max_keypoints=512),
+        mapper=MapperConfig(max_keyframes=192, max_points=32768),
+        loop=LoopConfig(min_kfs_between_loops=10),
+        tracker=TrackerConfig(init_min_matches=60, init_min_good=35))
+
+
+def pr_quality_reference(tmp: str) -> dict:
+    """Step 12 (d)-(e): scripts/pr_quality.py's `run_scene` on cylinder-A,
+    its System captured and saved with checkpoint.save_system."""
+    jpq = jax_script("pr_quality")
+    captured = []
+
+    class Capturing(jpq.System):
+        def __init__(self, *a, **kw):
+            super().__init__(*a, **kw)
+            captured.append(self)
+
+    jpq.System = Capturing
+    name, seed, n_pts, radius, n = "cylinder-A", 11, 700, 10.0, 140
+    cfg = pr_quality_config()
+    scene = synthetic.make_cylinder_scene(n_pts, radius=radius, seed=seed)
+    traj = synthetic.make_loop_trajectory(n, seed=seed, frac=1.25)
+    t0 = time.perf_counter()
+    K, stats, rows = jpq.run_scene(name, scene, traj, n, cfg)
+    wall = time.perf_counter() - t0
+    slam = captured[0]
+    path = os.path.join(tmp, "pr_system.npz")
+    checkpoint.save_system(path, slam)
+    lost = sum(1 for st in slam.stats if st.get("lost"))
+    print(f"pr_quality {name}: {K} keyframes, {stats['n_q']} queries, "
+          f"stats {stats}, {lost} lost, {wall:.1f} s")
+    out = {"pr_K": np.int32(K), "pr_frames": np.int32(n),
+           "pr_lost": np.int32(lost), "pr_wall_s": np.float64(wall),
+           "pr_stat_keys": np.asarray(list(stats)),
+           "pr_stats": np.asarray(list(stats.values()), np.int64),
+           "pr_rows": np.asarray([r[:4] for r in rows], np.int64)
+           .reshape(-1, 4),
+           "pr_top3": np.asarray([r[4] for r in rows], np.int64)
+           .reshape(-1, 3),
+           "pr_score": np.asarray([r[5] for r in rows], np.float64),
+           "pr_gt_score": np.asarray(
+               [slam.db.scores_against_all(r[0])[r[2]] for r in rows],
+               np.float64)}
+    with np.load(path) as z:
+        out.update({f"pr_ckpt_{k}": z[k] for k in z.files})
+    return out
+
+
+def proxy_reference(tmp: str) -> dict:
+    """Step 12 (f): scripts/make_proxy_datasets.py at
+    chip_smoke.SCRIPTS_PROXY_FRAMES frames, seed 11: every text file's
+    bytes and every image's decoded sha256."""
+    import chip_smoke as cs
+    jmp = jax_script("make_proxy_datasets")
+    root = os.path.join(tmp, "proxies")
+    n = cs.SCRIPTS_PROXY_FRAMES
+    jmp.make_tum(os.path.join(root, "tum_proxy"), n, 11)
+    jmp.make_kitti(os.path.join(root, "kitti_proxy"), n, 11)
+    jmp.make_euroc(os.path.join(root, "euroc_proxy"), n, 11)
+    texts = cs.proxy_texts(root)
+    images = cs.proxy_image_hashes(root)
+    blob = b"".join(texts.values())
+    return {"px_frames": np.int32(n),
+            "px_text_names": np.asarray(list(texts)),
+            "px_text_sizes": np.asarray([len(v) for v in texts.values()],
+                                        np.int64),
+            "px_text_bytes": np.frombuffer(blob, np.uint8),
+            "px_image_names": np.asarray(list(images)),
+            "px_image_sha256": np.asarray(list(images.values()))}
+
+
+def debug_coop_reference() -> dict:
+    """Step 12 (g): scripts/debug_coop.py's `main`, its printed lines."""
+    jdc = jax_script("debug_coop")
+    _, log = _stdout_of(jdc.main)
+    final = [ln for ln in log.splitlines() if ln.startswith("final:")]
+    probes = [ln for ln in log.splitlines() if "[probe kf" in ln]
+    return {"dc_final": np.asarray(final[-1]),
+            "dc_first_probe": np.asarray(probes[0] if probes else "")}
+
+
+def scripts_reference(out_dir: str = ASSETS) -> None:
+    """Step 12."""
+    import tempfile
+    arrays = {}
+    with tempfile.TemporaryDirectory(prefix="coslam_scripts_") as tmp:
+        for fn in (lambda: train_vocab_reference(tmp),
+                   lambda: pr_quality_reference(tmp),
+                   lambda: proxy_reference(tmp), debug_coop_reference):
+            t0 = time.perf_counter()
+            arrays.update(fn())
+            print(f"({time.perf_counter() - t0:.1f} s)", flush=True)
+    np.savez_compressed(os.path.join(out_dir, SCRIPTS_ASSET), **arrays)
+
+
 def bench_case():
     """The tracking case of step 11 as numpy arrays in track_step's
     argument order (img, prev_uv, prev_desc (uint32), prev_valid,
@@ -1243,6 +1432,11 @@ def main() -> int:
             p = os.path.join(ASSETS, DEPTH_ASSETS[i])
             print(f"{p}: {os.path.getsize(p)} bytes")
             return 0
+    if "--scripts-only" in sys.argv:
+        scripts_reference()
+        p = os.path.join(ASSETS, SCRIPTS_ASSET)
+        print(f"{p}: {os.path.getsize(p)} bytes")
+        return 0
     if "--datasets-only" in sys.argv:
         dataset_reference()
         p = os.path.join(ASSETS, DATASET_ASSET)
@@ -1276,11 +1470,12 @@ def main() -> int:
         dataset_reference()
         np.savez_compressed(os.path.join(ASSETS, BENCH_ASSET),
                             **bench_reference())
+        scripts_reference()
     for name in ("smoke_map.npz", "smoke_expected.npz",
                  "smoke_mapping_expected.npz", "smoke_reloc_expected.npz",
                  "smoke_loop_map.npz", "smoke_loop_resume.npz",
                  "smoke_loop_expected.npz") + DEPTH_ASSETS + COOP_ASSETS \
-            + (DATASET_ASSET, BENCH_ASSET):
+            + (DATASET_ASSET, BENCH_ASSET, SCRIPTS_ASSET):
         p = os.path.join(ASSETS, name)
         print(f"{p}: {os.path.getsize(p)} bytes")
     return 0

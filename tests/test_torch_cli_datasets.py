@@ -30,10 +30,10 @@ N = 14
 
 def _rot(axis: int, quarter_turns: int) -> np.ndarray:
     """An axis-aligned rotation: its quaternion is computed exactly by both
-    packages' float32 `rot_to_quat` (on general rotations XLA's CPU sqrt,
-    which is not correctly rounded for ~0.6% of inputs, moves ~4% of the
-    printed components by one unit of their last digit: tests/
-    test_torch_io.py holds those within that unit)."""
+    packages' float32 `rot_to_quat` (on general rotations ~0.7% of the
+    quaternions still differ by 1-2 ulp between XLA's CPU and the port,
+    which can move a printed component by one unit of its last digit:
+    tests/test_torch_io.py holds those within that unit)."""
     c, s = [(1, 0), (0, 1), (-1, 0), (0, -1)][quarter_turns % 4]
     R = np.eye(3)
     i, j = [(1, 2), (2, 0), (0, 1)][axis]

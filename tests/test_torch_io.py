@@ -230,9 +230,10 @@ def test_trajectory_tum_matches_reference(tmp_path, rng):
     np.testing.assert_allclose(tposes, jposes, atol=1e-6, rtol=1e-6)
     np.testing.assert_allclose(tposes, T, atol=1e-5)
     # the written files: timestamps and positions identical; quaternions
-    # within one unit of their 7th decimal (XLA's CPU float32 sqrt is not
-    # correctly rounded for ~0.6% of inputs, torch's is, so ~4% of the
-    # printed quaternion components differ in the last digit)
+    # within one unit of their 7th decimal (XLA's CPU sums rot_to_quat's
+    # norm with fused multiply-adds, which geometry._norm4 copies; ~0.7% of
+    # general rotations still differ by 1-2 ulp, so a printed component
+    # can differ in the last digit)
     jpath = str(tmp_path / "jtraj.txt")
     jio.save_trajectory_tum(jpath, ts, T)
     with open(path) as a, open(jpath) as b:

@@ -2,9 +2,12 @@
 bench_torch.py) imports with jax made unimportable, the ranks that the
 port's launcher spawns load no JAX module, and the slice's modules sit at
 the same relative paths as their coslam_tpu counterparts (the ports of the
-root entry points under coslam_tpu_torch/).  The dataset front end
-(utils/io.py, cli.py, viz/) imports Pillow only where it reads or draws an
-image, as the reference does."""
+root entry points and of the JAX side's scripts under coslam_tpu_torch/).
+The dataset front end (utils/io.py, cli.py, viz/) imports Pillow only where
+it reads or draws an image, as the reference does.  Nothing of the port and
+not chip_smoke.py reads a file under coslam_tpu/ (the vocabulary is the
+port's own copy), and the ported scripts do nothing at import and run on
+the GPU unless asked for the CPU."""
 
 import os
 import subprocess
@@ -30,6 +33,10 @@ SLICE = ["config.py", "utils/geometry.py", "utils/camera.py",
 ROOT_PORTS = {"entry.py": "__graft_entry__.py", "bench.py": "bench.py",
            "bench_scaling.py": "bench_scaling.py"}
 ROOT_SCRIPTS = ["chip_smoke.py", "bench_torch.py"]
+# the ports of the JAX side's scripts (port path -> reference path)
+SCRIPT_PORTS = {f"scripts/{n}.py": f"scripts/{n}.py" for n in (
+    "train_vocab", "pr_quality", "make_proxy_datasets", "run_results",
+    "debug_coop")}
 
 LOOP_MODULES = ["coslam_tpu_torch.ops.sim3",
                 "coslam_tpu_torch.optim.pose_graph",
@@ -55,7 +62,7 @@ def test_every_module_imports_without_jax():
                          capture_output=True, text=True, timeout=300)
     assert out.returncode == 0, out.stderr
     assert int(out.stdout.strip().splitlines()[-1]) \
-        >= len(SLICE) + len(ROOT_PORTS) + 5
+        >= len(SLICE) + len(ROOT_PORTS) + len(SCRIPT_PORTS) + 6
 
 
 def test_slice_modules_mirror_the_reference_layout():
@@ -67,6 +74,9 @@ def test_slice_modules_mirror_the_reference_layout():
         assert os.path.isfile(os.path.join(ROOT, "coslam_tpu_torch", port))
     for rel in ROOT_SCRIPTS:
         assert os.path.isfile(os.path.join(ROOT, rel)), rel
+    for port, ref in SCRIPT_PORTS.items():
+        assert os.path.isfile(os.path.join(ROOT, ref)), ref
+        assert os.path.isfile(os.path.join(ROOT, "coslam_tpu_torch", port))
     for name in ("fast_score_nms.cu", "masked_match.cu", "pose_opt_lm.cu"):
         assert os.path.isfile(os.path.join(ROOT, "coslam_tpu_torch", "csrc",
                                            name))
@@ -147,3 +157,94 @@ except ImportError as e:
                          capture_output=True, text=True, timeout=300)
     assert out.returncode == 0, out.stderr
     assert out.stdout.strip().splitlines()[-1] == "True"
+
+
+_NO_REFERENCE_FILES = """
+import builtins, importlib, os, pkgutil, sys
+import numpy as np
+sys.modules["jax"] = None
+BANNED = os.path.join(os.getcwd(), "coslam_tpu") + os.sep
+
+
+def guard(fn):
+    def wrapped(p, *a, **kw):
+        if isinstance(p, (str, bytes, os.PathLike)) and os.path.abspath(
+                os.fsdecode(p)).startswith(BANNED):
+            raise AssertionError(f"{fn.__name__}({p!r})")
+        return fn(p, *a, **kw)
+    wrapped.__name__ = fn.__name__
+    return wrapped
+
+
+builtins.open = guard(builtins.open)
+np.load = guard(np.load)
+os.path.exists = guard(os.path.exists)
+os.path.isfile = guard(os.path.isfile)
+try:
+    np.load("coslam_tpu/assets/vocab.npz")
+    raise SystemExit("the guard let a read through")
+except AssertionError:
+    pass
+import coslam_tpu_torch
+for m in pkgutil.walk_packages(coslam_tpu_torch.__path__,
+                               "coslam_tpu_torch."):
+    importlib.import_module(m.name)
+import bench_torch, chip_smoke
+chip_smoke.preflight()
+from coslam_tpu_torch.config import SystemConfig
+from coslam_tpu_torch.models.keyframe_db import KeyFrameDatabase
+from coslam_tpu_torch.models.system import System
+from coslam_tpu_torch.ops import bow
+cfg = SystemConfig()
+s = System(cfg, device="cpu")
+db = KeyFrameDatabase(cfg, device="cpu")
+print(s.db.n_words, db.n_words, db._external_vocab,
+      os.path.relpath(bow.pretrained_vocabulary_path()))
+"""
+
+
+def test_nothing_reads_a_file_of_the_jax_package():
+    """In a process where open, np.load, os.path.exists and os.path.isfile
+    raise on any path under coslam_tpu/: every port module and
+    chip_smoke.py import, chip_smoke's preflight passes, and a System and a
+    KeyFrameDatabase are built on the CPU with the pretrained vocabulary."""
+    out = subprocess.run([sys.executable, "-c", _NO_REFERENCE_FILES],
+                         cwd=ROOT, capture_output=True, text=True,
+                         timeout=300)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip().splitlines()[-1] \
+        == "8192 8192 True coslam_tpu_torch/assets/vocab.npz"
+
+
+_SCRIPTS_DEFAULT_TO_CUDA = """
+import contextlib, importlib, io, os, sys
+import torch
+sys.modules["jax"] = None
+torch.cuda.is_available = lambda: False
+before = sorted(os.listdir("."))
+buf = io.StringIO()
+with contextlib.redirect_stdout(buf):
+    mods = [importlib.import_module(f"coslam_tpu_torch.scripts.{n}")
+            for n in %r]
+assert buf.getvalue() == "", buf.getvalue()
+for mod in mods:
+    try:
+        mod.main([])
+        raise SystemExit(f"{mod.__name__} ran without a GPU")
+    except RuntimeError as e:
+        assert 'device="cpu"' in str(e), (mod.__name__, e)
+assert sorted(os.listdir(".")) == before
+print("ok")
+"""
+
+
+def test_scripts_default_to_the_gpu():
+    """The ported scripts print nothing at import, and each `main` with no
+    arguments asks for the GPU and raises where there is none (nothing
+    falls back to the CPU, nothing is written)."""
+    names = [os.path.basename(p)[:-3] for p in SCRIPT_PORTS]
+    out = subprocess.run(
+        [sys.executable, "-c", _SCRIPTS_DEFAULT_TO_CUDA % (names,)],
+        cwd=ROOT, capture_output=True, text=True, timeout=300)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip().splitlines()[-1] == "ok"
