@@ -1,0 +1,23 @@
+"""Host wall milliseconds of place recognition per call of
+LoopCloser.on_keyframe: the program's `loop.detect` spans
+(KeyFrameDatabase.detect_loop_candidates: BoW scoring, then the
+covisibility consistency groups with their readback), summed over the
+window, over the number of `loop.on_keyframe` spans there
+(coslam_tpu_torch/utils/profiling.py).  None where the program records no
+`loop.on_keyframe` span."""
+
+
+def read(td):
+    try:
+        from coslam_tpu_torch.utils import profiling
+    except ImportError:
+        return None
+    if not hasattr(profiling, "spans"):
+        return None
+    recs = profiling.spans()
+    idx = profiling.spans_in_window(recs, td.t0_ns, td.t1_ns)
+    calls = sum(1 for i in idx if recs[i].name == "loop.on_keyframe")
+    if not calls:
+        return None
+    return sum(recs[i].end_ns - recs[i].start_ns for i in idx
+               if recs[i].name == "loop.detect") / calls / 1e6

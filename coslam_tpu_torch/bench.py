@@ -1,6 +1,5 @@
 """Benchmark of the port: tracked frames/s on one GPU, for the full System
-and for the tracking hot path (port of bench.py, with prof7.py's matcher
-timing).
+and for the tracking hot path (port of bench.py).
 
     python3 bench_torch.py [--device cuda] [--seed S] [--frames 120]
                            [--repeats 3] [--batch 64]
@@ -39,7 +38,7 @@ On `--device cpu` nothing is captured: the hot path runs eagerly, with the
 kernels' plain twins, and the JSON line's `device` reads "cpu".
 
 Prints earlier lines (the card's name and power limit, the hot path eager
-and captured, the matcher, every System run) and, as its last line, one
+and captured, every System run) and, as its last line, one
 JSON object with bench.py's keys.  Exits 1 when a frame was lost or when
 the graph's outputs differ from the eager ones.
 """
@@ -59,7 +58,6 @@ import torch
 from coslam_tpu_torch import config as cfg_mod
 from coslam_tpu_torch import entry as ent
 from coslam_tpu_torch.ops import cuda_kernels as ck
-from coslam_tpu_torch.ops import matching
 from coslam_tpu_torch.utils import synthetic
 from coslam_tpu_torch.utils.device import DEFAULT_DEVICE, resolve_device
 
@@ -206,37 +204,6 @@ def bench_hot_path(device=DEFAULT_DEVICE, seed: int = 0, batch: int = 64,
         outputs=out)
 
 
-def bench_matcher(device=DEFAULT_DEVICE, batch: int = 64,
-                  reps: int = 5) -> float:
-    """prof7.py on the port: `match_windowed` of one random query set
-    against `batch` random target sets (1024 keypoints each, 20 px window,
-    max distance 100, mutual), in one CUDA graph on the card; returns ms
-    per target set."""
-    dev = resolve_device(device)
-    rng = np.random.default_rng(0)
-    n = 1024
-    mcfg = cfg_mod.MatcherConfig()
-
-    def t(a):
-        return torch.from_numpy(a).to(dev)
-
-    dq = t(rng.integers(0, 2 ** 32, (n, 8), dtype=np.uint32).view(np.int32))
-    uq = t(rng.uniform(0, 600, (n, 2)).astype(np.float32))
-    vq = t(np.ones(n, bool))
-    dts = t(rng.integers(0, 2 ** 32, (batch, n, 8), dtype=np.uint32)
-            .view(np.int32))
-    uts = t(rng.uniform(0, 600, (batch, n, 2)).astype(np.float32))
-    vts = t(np.ones((batch, n), bool))
-
-    def run():
-        return torch.stack([matching.match_windowed(
-            dq, uq, 20.0, vq, dts[b], uts[b], vts[b], mcfg, max_dist=100,
-            mutual=True).valid.sum() for b in range(batch)])
-
-    fn = capture(run, dev).replay if dev.type == "cuda" else run
-    return best_seconds(fn, dev, reps) / batch * 1e3
-
-
 def full_system_config(mapper_latency_frames: int = -1
                        ) -> cfg_mod.SystemConfig:
     """bench.py:140-150: 640x480 at fx 400, 1000 features in 1024 slots,
@@ -365,10 +332,6 @@ def main(argv=None) -> int:
           "K1, K2 and K3 count zero); hot_path_mfu_pct null: no FLOP count "
           "covers the three kernels, whose roofline shares are "
           "chip_smoke.py's kernel table", flush=True)
-    ms = bench_matcher(dev, a.batch)
-    print(f"[matcher] match_windowed, 1024 queries against {a.batch} "
-          f"target sets of 1024 in one {'CUDA graph' if hot.graph else 'loop'}"
-          f": {ms:.4f} ms per target set | {card}", flush=True)
 
     full = bench_full_system(dev, a.frames, 3 if a.seed is None else a.seed,
                              a.repeats, a.mapper_latency_frames)

@@ -46,6 +46,7 @@ from coslam_tpu_torch.models import map_state as ms
 from coslam_tpu_torch.models.frame import Frame
 from coslam_tpu_torch.models.system import System
 from coslam_tpu_torch.utils import geometry as geo
+from coslam_tpu_torch.utils import profiling
 from coslam_tpu_torch.utils.device import DEFAULT_DEVICE
 
 
@@ -266,21 +267,23 @@ class CoopAgent(System):
         alignment / closure event."""
         if self.state != "OK":
             return False
-        self._foreign_agents.add(pkt.agent_id)
-        merged = self.merged_agents.get(pkt.agent_id, False)
-        k = self._integrate_packet(pkt, full_backend=merged)
-        if not merged:
-            return self._try_merge(k, pkt.agent_id)
-        # keep cross-agent place recognition alive after the merge: the
-        # loop-closing path when the receiver runs it, then re-alignment of
-        # the whole foreign component by a verified residual Sim3
-        if self.loop_closer is not None:
-            m, closed = self.loop_closer.on_keyframe(self.map, k)
-            self.map = m
-            if closed:
-                self.n_merges += 1
-                return True
-        return self._try_realign(k, pkt.agent_id)
+        with profiling.span("coop.receive_packet") as sp:
+            self._foreign_agents.add(pkt.agent_id)
+            merged = self.merged_agents.get(pkt.agent_id, False)
+            k = self._integrate_packet(pkt, full_backend=merged)
+            sp.set(kf=k)
+            if not merged:
+                return self._try_merge(k, pkt.agent_id)
+            # keep cross-agent place recognition alive after the merge: the
+            # loop-closing path when the receiver runs it, then re-alignment
+            # of the whole foreign component by a verified residual Sim3
+            if self.loop_closer is not None:
+                m, closed = self.loop_closer.on_keyframe(self.map, k)
+                self.map = m
+                if closed:
+                    self.n_merges += 1
+                    return True
+            return self._try_realign(k, pkt.agent_id)
 
     def _integrate_packet(self, pkt: KeyFramePacket,
                           full_backend: bool = True) -> int:
@@ -406,43 +409,45 @@ class CoopAgent(System):
         component is similarity-transformed into the local frame, duplicate
         landmarks fuse, and the alignment is stored so that later packets
         arrive pre-transformed."""
-        found = self._find_cross_sim3(foreign_kf)
-        if found is None:
-            return False
-        S_w, pt1, pt2, pairs = found
-        self._apply_cross_sim3(agent_id, S_w, pt1, pt2, pairs, ba_iters=5)
-        self.merged_agents[agent_id] = True
-        self._agent_sim3[agent_id] = (
-            float(S_w["s"]), S_w["R"].cpu().numpy(), S_w["t"].cpu().numpy())
-        self.n_merges += 1
-        # the pre-merge foreign keyframes skipped the back-end pass; the
-        # merge keyframe gets it now that its component sits in the local
-        # frame (triangulation / fusion across agents)
-        self._backend_pass(foreign_kf, agent_id)
-        # residual-drift sweep: re-verify the strongest other cross-agent
-        # pairs after their back-end pass and fold their residual Sim3s in
-        own, fore = self._own_and_foreign(agent_id)
-        scored = []
-        for k in fore:
-            if int(k) == int(foreign_kf):
-                continue
-            s = float(np.where(own, self.db.scores_against_all(int(k)),
-                               -1.0).max())
-            scored.append((s, int(k)))
-        scored.sort(reverse=True)
-        for s, k in scored[:3]:
-            if s <= 0.02:
-                break
-            self._backend_pass(k, agent_id)
-            self._kf_pose_dirty = True
-            self._try_realign(k, agent_id)
-        # one joint optimization over the merged map with the sweep's
-        # cross-agent observations in place (the reference's post-loop GBA,
-        # LoopClosing.cc:645)
-        if scored:
-            self.map = lc.global_ba(self.cfg, self.map, iters=8)
-            self._kf_pose_dirty = True
-        return True
+        with profiling.span("coop.merge", kf=foreign_kf):
+            found = self._find_cross_sim3(foreign_kf)
+            if found is None:
+                return False
+            S_w, pt1, pt2, pairs = found
+            self._apply_cross_sim3(agent_id, S_w, pt1, pt2, pairs,
+                                   ba_iters=5)
+            self.merged_agents[agent_id] = True
+            self._agent_sim3[agent_id] = (
+                float(S_w["s"]), S_w["R"].cpu().numpy(), S_w["t"].cpu().numpy())
+            self.n_merges += 1
+            # the pre-merge foreign keyframes skipped the back-end pass; the
+            # merge keyframe gets it now that its component sits in the local
+            # frame (triangulation / fusion across agents)
+            self._backend_pass(foreign_kf, agent_id)
+            # residual-drift sweep: re-verify the strongest other cross-agent
+            # pairs after their back-end pass and fold their residual Sim3s in
+            own, fore = self._own_and_foreign(agent_id)
+            scored = []
+            for k in fore:
+                if int(k) == int(foreign_kf):
+                    continue
+                s = float(np.where(own, self.db.scores_against_all(int(k)),
+                                   -1.0).max())
+                scored.append((s, int(k)))
+            scored.sort(reverse=True)
+            for s, k in scored[:3]:
+                if s <= 0.02:
+                    break
+                self._backend_pass(k, agent_id)
+                self._kf_pose_dirty = True
+                self._try_realign(k, agent_id)
+            # one joint optimization over the merged map with the sweep's
+            # cross-agent observations in place (the reference's post-loop GBA,
+            # LoopClosing.cc:645)
+            if scored:
+                self.map = lc.global_ba(self.cfg, self.map, iters=8)
+                self._kf_pose_dirty = True
+            return True
 
     def _cross_draws(self, foreign_kf: int, cand: int):
         """(samples, generator) of one cross-agent Sim3 RANSAC."""

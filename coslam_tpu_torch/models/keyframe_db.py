@@ -22,6 +22,7 @@ import torch
 from coslam_tpu_torch.config import SystemConfig
 from coslam_tpu_torch.models import map_state as ms
 from coslam_tpu_torch.ops import bow
+from coslam_tpu_torch.utils import profiling
 from coslam_tpu_torch.utils.device import DEFAULT_DEVICE, resolve_device
 
 
@@ -206,8 +207,9 @@ class KeyFrameDatabase:
 
         self.n_device_reads += 1
         rows = ms.covisibility_rows(
-            m, torch.as_tensor(cand, device=m.kf_valid.device)) \
-            .cpu().numpy()                                # (C, K)
+            m, torch.as_tensor(cand, device=m.kf_valid.device))
+        with profiling.span("sync.loop", kf=kf_id):
+            rows = rows.cpu().numpy()                     # (C, K)
         groups = rows >= self.cfg.mapper.covis_edge_threshold
         groups[np.arange(cand.size), cand] = True         # (C, K) bool
         prev_groups, prev_counts = self._consistent_groups \

@@ -35,6 +35,7 @@ from coslam_tpu_torch.ops import hamming, matching
 from coslam_tpu_torch.ops import sim3 as sim3_ops
 from coslam_tpu_torch.optim import ba, pose_graph
 from coslam_tpu_torch.utils import geometry as geo
+from coslam_tpu_torch.utils import profiling
 
 
 def _index(k, device) -> torch.Tensor:
@@ -483,11 +484,12 @@ class LoopCloser:
         return (torch.from_numpy(arr).to(device),
                 torch.from_numpy(val).to(device))
 
-    def _read(self, *tensors) -> np.ndarray:
+    def _read(self, kf_id: int, *tensors) -> np.ndarray:
         """One counted readback of a few scalars, as float64."""
         self.n_host_syncs += 1
-        return torch.stack([t.to(torch.float64) for t in tensors]) \
-            .cpu().numpy()
+        with profiling.span("sync.loop", kf=kf_id):
+            return torch.stack([t.to(torch.float64) for t in tensors]) \
+                .cpu().numpy()
 
     def _draws(self, kf_id: int, cand: int, device):
         """(samples, generator) of one Sim3 RANSAC: independent of how many
@@ -503,21 +505,30 @@ class LoopCloser:
     def on_keyframe(self, m: ms.MapState, kf_id: int,
                     covis_row: Optional[np.ndarray] = None
                     ) -> Tuple[ms.MapState, bool]:
+        with profiling.span("loop.on_keyframe", kf=kf_id):
+            return self._on_keyframe(m, kf_id, covis_row)
+
+    def _on_keyframe(self, m: ms.MapState, kf_id: int,
+                     covis_row: Optional[np.ndarray]
+                     ) -> Tuple[ms.MapState, bool]:
         lcfg = self.cfg.loop
         dev = m.kf_pose.device
         if kf_id - self.last_loop_kf < lcfg.min_kfs_between_loops:
             return m, False
         if covis_row is None:
             self.n_host_syncs += 1
-            covis_row = ms.covisibility_row(m, kf_id).cpu().numpy()
+            with profiling.span("sync.loop", kf=kf_id):
+                covis_row = ms.covisibility_row(m, kf_id).cpu().numpy()
         else:
             covis_row = np.asarray(covis_row)
         K = covis_row.shape[0]
         self.n_host_syncs += 1
+        with profiling.span("sync.loop", kf=kf_id):
+            kf_valid = m.kf_valid.cpu().numpy()
         eligible = (np.arange(K) != kf_id) \
             & (covis_row < self.cfg.mapper.covis_edge_threshold) \
             & (np.abs(np.arange(K) - kf_id) > lcfg.min_kfs_between_loops) \
-            & m.kf_valid.cpu().numpy()
+            & kf_valid
 
         # candidate shortlist: BoW scoring + consistency chains (reference
         # LoopClosing::DetectLoop, KeyFrameDatabase.cc:120) is the primary
@@ -525,23 +536,29 @@ class LoopCloser:
         # fallback for untrained-vocabulary domains
         if lcfg.brute_force_shortlist:
             self.n_host_syncs += 1
-            counts = match_counts_all(self.cfg, m, kf_id).cpu().numpy()
+            with profiling.span("loop.shortlist", kf=kf_id):
+                counts = match_counts_all(self.cfg, m, kf_id)
+                with profiling.span("sync.loop", kf=kf_id):
+                    counts = counts.cpu().numpy()
             counts = np.where(eligible, counts, -1)
             shortlist = [int(c) for c in np.argsort(-counts)[:3]
                          if counts[c] >= lcfg.sim3_min_bow_matches]
         else:
             reads = self.db.n_device_reads
-            bow_cands = [c for c in
-                         self.db.detect_loop_candidates(m, kf_id, covis_row)
-                         if eligible[c]][:8]
+            with profiling.span("loop.detect", kf=kf_id):
+                bow_cands = [c for c in self.db.detect_loop_candidates(
+                    m, kf_id, covis_row) if eligible[c]][:8]
             self.n_host_syncs += self.db.n_device_reads - reads
             if not bow_cands:
                 return m, False
             # geometric pre-verification on the shortlist only
             self.n_host_syncs += 1
-            counts = match_counts_subset(
-                self.cfg, m, kf_id,
-                torch.as_tensor(bow_cands, device=dev)).cpu().numpy()
+            with profiling.span("loop.shortlist", kf=kf_id):
+                counts = match_counts_subset(
+                    self.cfg, m, kf_id, torch.as_tensor(bow_cands,
+                                                        device=dev))
+                with profiling.span("sync.loop", kf=kf_id):
+                    counts = counts.cpu().numpy()
             order = np.argsort(-counts)
             shortlist = [int(bow_cands[i]) for i in order[:3]
                          if counts[i] >= lcfg.sim3_min_bow_matches]
@@ -549,62 +566,23 @@ class LoopCloser:
             print(f"[loop] kf {kf_id}: shortlist {shortlist}", flush=True)
 
         for cand in shortlist:
-            idx2, pt1, pt2, ok = match_pair_points(self.cfg, m, kf_id, cand)
-            n_pair = int(self._read(ok.sum())[0])
-            if self.verbose:
-                print(f"[loop]   cand {cand}: {n_pair} point pairs",
-                      flush=True)
-            # half-gate at entry: the Sim3 RANSAC needs only a minimal
-            # consensus to seed the SearchBySim3 expansion below, where the
-            # FULL sim3_min_inliers gate applies (reference ComputeSim3's
-            # >= 20 BoW matches precede a solver whose inliers then grow
-            # through SearchBySim3, LoopClosing.cc:267-300)
-            if n_pair < max(6, lcfg.sim3_min_bow_matches // 2):
+            with profiling.span("loop.verify", kf=kf_id,
+                                candidate=cand) as sp:
+                n_inl, found = self._verify(m, kf_id, cand)
+                sp.set(inliers=n_inl)
+            if found is None:
                 continue
-            samples, gen = self._draws(kf_id, cand, dev)
-            res = sim3_between(self.cfg, m, kf_id, cand, idx2, pt1, pt2, ok,
-                               samples=samples, generator=gen)
-            n_inl, s_hat = self._read(res.n_inliers, res.s)
-            if self.verbose:
-                print(f"[loop]   cand {cand}: sim3 inliers {int(n_inl)}"
-                      f" scale {s_hat:.3f}", flush=True)
-            # a marginal RANSAC consensus is enough to ATTEMPT expansion
-            # (reference ComputeSim3 proceeds to SearchBySim3 once the
-            # solver converges, LoopClosing.cc:275-300)
-            if int(n_inl) < max(6, lcfg.sim3_min_inliers // 2):
-                continue
-            if not (1.0 / lcfg.sim3_max_scale < s_hat
-                    < lcfg.sim3_max_scale):
-                # degenerate fit: a near-coincident/collinear inlier set can
-                # satisfy the reprojection gate at an absurd scale; a real
-                # same-map loop's scale drift is a few percent
-                if self.verbose:
-                    print(f"[loop]   cand {cand}: rejected, scale {s_hat:.3g}",
-                          flush=True)
-                continue
-            # SearchBySim3-style match expansion + OptimizeSim3 polish —
-            # the acceptance gate applies to the EXPANDED inlier set
-            idx2, pt1, pt2, ok = expand_sim3_matches(
-                self.cfg, m, kf_id, cand, res.s, res.R, res.t)
-            res = sim3_refine_pairs(self.cfg, m, kf_id, cand, idx2, pt1, pt2,
-                                    ok, res.s, res.R, res.t)
-            n_inl, s_hat = self._read(res.n_inliers, res.s)
-            if self.verbose:
-                print(f"[loop]   cand {cand}: expanded inliers "
-                      f"{int(n_inl)} scale {s_hat:.3f}", flush=True)
-            if int(n_inl) < lcfg.sim3_min_inliers:
-                continue
-            if not (1.0 / lcfg.sim3_max_scale < s_hat
-                    < lcfg.sim3_max_scale):
-                continue
-            prev, prev_valid = self._prev_loop_arrays(dev)
-            m = correct_loop(self.cfg, m, kf_id, cand, res.s, res.R, res.t,
-                             pt1, pt2, ok & res.inliers,
-                             prev_loops=prev, prev_loops_valid=prev_valid)
+            res, pt1, pt2, ok = found
+            with profiling.span("loop.correct", kf=kf_id):
+                prev, prev_valid = self._prev_loop_arrays(dev)
+                m = correct_loop(self.cfg, m, kf_id, cand, res.s, res.R,
+                                 res.t, pt1, pt2, ok & res.inliers,
+                                 prev_loops=prev,
+                                 prev_loops_valid=prev_valid)
             self.last_loop_kf = kf_id
             self.loop_edges.append((kf_id, cand))
             self.last_closure = {"kf": kf_id, "candidate": cand,
-                                 "n_inliers": int(n_inl), "s": res.s,
+                                 "n_inliers": n_inl, "s": res.s,
                                  "R": res.R, "t": res.t}
             # deferred global BA (the reference runs GBA on a separate
             # thread with abort-on-new-loop, LoopClosing.cc:579 mbStopGBA;
@@ -615,10 +593,68 @@ class LoopCloser:
             return m, True
         return m, False
 
+    def _verify(self, m: ms.MapState, kf_id: int, cand: int):
+        """One candidate's Sim3 verification (reference ComputeSim3,
+        LoopClosing.cc:231): pair matching, RANSAC, the SearchBySim3
+        expansion and the polish, each behind its gate.  Returns the inlier
+        count it reached and, when every gate passes, (the polished Sim3,
+        pt1, pt2, ok), else None."""
+        lcfg = self.cfg.loop
+        dev = m.kf_pose.device
+        idx2, pt1, pt2, ok = match_pair_points(self.cfg, m, kf_id, cand)
+        n_pair = int(self._read(kf_id, ok.sum())[0])
+        if self.verbose:
+            print(f"[loop]   cand {cand}: {n_pair} point pairs",
+                  flush=True)
+        # half-gate at entry: the Sim3 RANSAC needs only a minimal
+        # consensus to seed the SearchBySim3 expansion below, where the
+        # FULL sim3_min_inliers gate applies (reference ComputeSim3's
+        # >= 20 BoW matches precede a solver whose inliers then grow
+        # through SearchBySim3, LoopClosing.cc:267-300)
+        if n_pair < max(6, lcfg.sim3_min_bow_matches // 2):
+            return 0, None
+        samples, gen = self._draws(kf_id, cand, dev)
+        res = sim3_between(self.cfg, m, kf_id, cand, idx2, pt1, pt2, ok,
+                           samples=samples, generator=gen)
+        n_inl, s_hat = self._read(kf_id, res.n_inliers, res.s)
+        if self.verbose:
+            print(f"[loop]   cand {cand}: sim3 inliers {int(n_inl)}"
+                  f" scale {s_hat:.3f}", flush=True)
+        # a marginal RANSAC consensus is enough to ATTEMPT expansion
+        # (reference ComputeSim3 proceeds to SearchBySim3 once the
+        # solver converges, LoopClosing.cc:275-300)
+        if int(n_inl) < max(6, lcfg.sim3_min_inliers // 2):
+            return int(n_inl), None
+        if not (1.0 / lcfg.sim3_max_scale < s_hat
+                < lcfg.sim3_max_scale):
+            # degenerate fit: a near-coincident/collinear inlier set can
+            # satisfy the reprojection gate at an absurd scale; a real
+            # same-map loop's scale drift is a few percent
+            if self.verbose:
+                print(f"[loop]   cand {cand}: rejected, scale {s_hat:.3g}",
+                      flush=True)
+            return int(n_inl), None
+        # SearchBySim3-style match expansion + OptimizeSim3 polish —
+        # the acceptance gate applies to the EXPANDED inlier set
+        idx2, pt1, pt2, ok = expand_sim3_matches(
+            self.cfg, m, kf_id, cand, res.s, res.R, res.t)
+        res = sim3_refine_pairs(self.cfg, m, kf_id, cand, idx2, pt1, pt2,
+                                ok, res.s, res.R, res.t)
+        n_inl, s_hat = self._read(kf_id, res.n_inliers, res.s)
+        if self.verbose:
+            print(f"[loop]   cand {cand}: expanded inliers "
+                  f"{int(n_inl)} scale {s_hat:.3f}", flush=True)
+        if int(n_inl) < lcfg.sim3_min_inliers \
+                or not (1.0 / lcfg.sim3_max_scale < s_hat
+                        < lcfg.sim3_max_scale):
+            return int(n_inl), None
+        return int(n_inl), (res, pt1, pt2, ok)
+
     def maybe_run_gba(self, m: ms.MapState) -> ms.MapState:
         """Run a deferred global BA if one is pending (called by the System
         at the next keyframe, i.e. once the closure has 'settled')."""
         if self.pending_gba is None:
             return m
         self.pending_gba = None
-        return global_ba(self.cfg, m)
+        with profiling.span("loop.global_ba"):
+            return global_ba(self.cfg, m)

@@ -47,6 +47,7 @@ from coslam_tpu_torch.models import tracking
 from coslam_tpu_torch.models.frame import Frame, build_frame
 from coslam_tpu_torch.ops import matching, twoview
 from coslam_tpu_torch.utils import geometry as geo
+from coslam_tpu_torch.utils import profiling
 from coslam_tpu_torch.utils.device import DEFAULT_DEVICE, resolve_device
 
 
@@ -78,7 +79,9 @@ def _init_attempt(cfg: SystemConfig, m: ms.MapState, f0: Frame, f1: Frame,
                              tr.ransac_sigma, tr.init_min_good)
     success = res.success & (n_matches >= tr.init_min_matches)
     N = f0.uv.shape[0]
-    if bool(success):
+    with profiling.span("sync.frame", frame=fid1):
+        ok = bool(success)
+    if ok:
         m2, kp_pt1, n_pts = _initial_map(cfg, m, f0, f1, fid0, fid1, res.T21,
                                          res.points3d, mm.idx,
                                          res.is_inlier & mm.valid)
@@ -157,10 +160,11 @@ class System:
                  enable_loop_closing: bool = True):
         self.cfg = cfg
         self.device = resolve_device(device)
-        self.map = ms.empty_map(cfg, self.device)
-        self.db = kdb.KeyFrameDatabase(cfg, device=self.device)
-        self.loop_closer = lc.LoopCloser(cfg, self.db) \
-            if enable_loop_closing else None
+        with profiling.span("session.new"):
+            self.map = ms.empty_map(cfg, self.device)
+            self.db = kdb.KeyFrameDatabase(cfg, device=self.device)
+            self.loop_closer = lc.LoopCloser(cfg, self.db) \
+                if enable_loop_closing else None
         self.n_loops_closed = 0
         self.state = "NOT_INITIALIZED"
         self.ref_frame: Optional[Frame] = None
@@ -241,7 +245,10 @@ class System:
                    timestamp: Optional[float] = None) -> Optional[np.ndarray]:
         self._note_frame(frame_id, timestamp)
         self._cur_depth = None
-        frame = build_frame(self._to_device(img), self.cfg)
+        # a pageable upload waits for the device's queue to drain
+        with profiling.span("sync.upload", frame=frame_id):
+            img = self._to_device(img)
+        frame = build_frame(img, self.cfg)
         self.last_frame = frame  # for viewers (FrameDrawer::Update)
         if self.state == "NOT_INITIALIZED":
             self._try_initialize(frame, frame_id)
@@ -396,7 +403,11 @@ class System:
                                      device=self.device),
                 ref_kf=torch.tensor(self.last_ref_kf, dtype=torch.int32,
                                     device=self.device))
-        if res2 is None or int(res2.n_inliers) < 10:
+        n_motion = 0
+        if res2 is not None:
+            with profiling.span("sync.frame", frame=frame_id):
+                n_motion = int(res2.n_inliers)
+        if res2 is None or n_motion < 10:
             # lost before, or motion tracking failed outright: the reference
             # falls through to Relocalization (Tracking.cc:366-380)
             res = self._attempt_relocalization(frame)
@@ -481,6 +492,12 @@ class System:
         `depths` (RGB-D) / `right_images` (stereo) ride along with the
         images: per frame on the per-frame path, stacked per chunk as
         `track_chunk`'s `aux_imgs`."""
+        with profiling.span("session.run"):
+            self._run_sequence(images, frame_ids, timestamps, depths,
+                               right_images, chunk)
+
+    def _run_sequence(self, images, frame_ids, timestamps, depths,
+                      right_images, chunk):
         n = len(images)
         C = chunk if chunk is not None else self.cfg.tracker.chunk_frames
         fid = (lambda i: frame_ids[i]) if frame_ids is not None else \
@@ -502,181 +519,205 @@ class System:
         carry = None
         while i < n:
             if self.state != "OK" or self._pf_cooldown > 0:
-                if self.state == "OK" and self._pf_cooldown > 0:
-                    self._pf_cooldown -= 1
-                # a deferred loop closure / global BA collected here moves
-                # every keyframe pose; the tracker's motion prior (last_T /
-                # velocity) is re-expressed in the corrected frame, as in
-                # the limit == 0 path below
+                with profiling.span("track.frame", frame=fid(i)):
+                    if self.state == "OK" and self._pf_cooldown > 0:
+                        self._pf_cooldown -= 1
+                    # a deferred loop closure / global BA collected here
+                    # moves every keyframe pose; the tracker's motion prior
+                    # (last_T / velocity) is re-expressed in the corrected
+                    # frame, as in the limit == 0 path below
+                    kf_pose_snap = self.map.kf_pose
+                    moved = self._flush_pending()
+                    if carry is not None:
+                        self._sync_host_from_carry(carry)
+                        carry = None
+                    if moved and self.last_ref_kf >= 0:
+                        self._reexpress_last_T(kf_pose_snap)
+                    track_one(i)
+                    if self.state == "OK" and self.stats \
+                            and self.stats[-1].get("inliers", 99) < 25:
+                        self._pf_cooldown = max(self._pf_cooldown, 1)
+                i += 1
+                continue
+            with profiling.span("track.chunk", frame=fid(i)):
+                real = min(C, n - i)
+                src = [i + j for j in range(real)] \
+                    + [i + real - 1] * (C - real)
+                # a pageable upload waits for the device's queue to drain
+                with profiling.span("sync.upload", frame=fid(i)):
+                    imgs = torch.stack([self._to_device(images[j])
+                                        for j in src])
+                    aux_imgs = None if aux_seq is None else torch.stack(
+                        [self._to_device(aux_seq[j]) for j in src])
+                if carry is None:
+                    carry = self._carry_from_host()
+                # the poses this chunk tracks against (a reference, no copy)
                 kf_pose_snap = self.map.kf_pose
-                moved = self._flush_pending()
-                if carry is not None:
+                ml = (torch.tensor(self._mapper_latency, dtype=torch.int32,
+                                   device=self.device)
+                      if self.cfg.tracker.mapper_latency_frames < 0
+                      else None)
+                (carry2, steps, frames, kp_pts, vis_snap, found_snap,
+                 kp_depths) = tracking.track_chunk(
+                    self.cfg, self.map, imgs, not self.localization_only,
+                    carry, aux_imgs, mapper_latency=ml)
+                if aux_imgs is None:
+                    kp_depths = None
+                # the previous chunk's deferred keyframe bookkeeping
+                map_moved = self._flush_pending()
+                with profiling.span("sync.chunk", frame=fid(i)):
+                    out = tracking.ChunkStep(*[t.cpu().numpy()
+                                               for t in steps])
+                oks = out.ok
+                first_bad = int(np.argmin(oks)) if not oks.all() else C
+                degraded = out.n_inliers <= 20
+                deg_idx = np.nonzero(degraded[:first_bad])[0]
+                limit = int(deg_idx[0]) if deg_idx.size else first_bad
+                # padded tail frames are never accepted
+                limit = min(limit, real)
+
+                self.n_frames_chunked += real
+                if limit == 0:
+                    # no usable prefix: the per-frame path arbitrates this
+                    # frame
+                    self.n_frames_discarded += real
+                    self._pf_cooldown = C
                     self._sync_host_from_carry(carry)
+                    if map_moved and self.last_ref_kf >= 0:
+                        self._reexpress_last_T(kf_pose_snap)
+                    with profiling.span("track.frame", frame=fid(i)):
+                        track_one(i)
+                    i += 1
                     carry = None
-                if moved and self.last_ref_kf >= 0:
-                    self._reexpress_last_T(kf_pose_snap)
-                track_one(i)
-                if self.state == "OK" and self.stats \
-                        and self.stats[-1].get("inliers", 99) < 25:
-                    self._pf_cooldown = max(self._pf_cooldown, 1)
-                i += 1
-                continue
-            real = min(C, n - i)
-            src = [i + j for j in range(real)] + [i + real - 1] * (C - real)
-            imgs = torch.stack([self._to_device(images[j]) for j in src])
-            aux_imgs = None if aux_seq is None else torch.stack(
-                [self._to_device(aux_seq[j]) for j in src])
-            if carry is None:
-                carry = self._carry_from_host()
-            # the poses this chunk tracks against (a reference, no copy)
-            kf_pose_snap = self.map.kf_pose
-            ml = (torch.tensor(self._mapper_latency, dtype=torch.int32,
-                               device=self.device)
-                  if self.cfg.tracker.mapper_latency_frames < 0 else None)
-            carry2, steps, frames, kp_pts, vis_snap, found_snap, kp_depths \
-                = tracking.track_chunk(self.cfg, self.map, imgs,
-                                       not self.localization_only, carry,
-                                       aux_imgs, mapper_latency=ml)
-            if aux_imgs is None:
-                kp_depths = None
-            # the previous chunk's deferred keyframe bookkeeping
-            map_moved = self._flush_pending()
-            out = tracking.ChunkStep(*[t.cpu().numpy() for t in steps])
-            oks = out.ok
-            first_bad = int(np.argmin(oks)) if not oks.all() else C
-            degraded = out.n_inliers <= 20
-            deg_idx = np.nonzero(degraded[:first_bad])[0]
-            limit = int(deg_idx[0]) if deg_idx.size else first_bad
-            limit = min(limit, real)   # padded tail frames are never accepted
+                    continue
 
-            self.n_frames_chunked += real
-            if limit == 0:
-                # no usable prefix: the per-frame path arbitrates this frame
-                self.n_frames_discarded += real
-                self._pf_cooldown = C
-                self._sync_host_from_carry(carry)
-                if map_moved and self.last_ref_kf >= 0:
-                    self._reexpress_last_T(kf_pose_snap)
-                track_one(i)
-                i += 1
-                carry = None
-                continue
+                needs = out.need_kf
+                flag_idx = np.nonzero(needs[:limit])[0]
+                j1 = int(flag_idx[0]) if flag_idx.size else None
+                # spliced acceptance: cut at the first keyframe flag but keep
+                # the unflagged suffix tracked against the pre-insert map
+                if j1 is None:
+                    n_acc = limit
+                else:
+                    n_acc = j1 + 1
+                    while n_acc < limit and not needs[n_acc]:
+                        n_acc += 1
+                self.n_frames_discarded += real - n_acc
 
-            needs = out.need_kf
-            flag_idx = np.nonzero(needs[:limit])[0]
-            j1 = int(flag_idx[0]) if flag_idx.size else None
-            # spliced acceptance: cut at the first keyframe flag but keep
-            # the unflagged suffix tracked against the pre-insert map
-            if j1 is None:
-                n_acc = limit
-            else:
-                n_acc = j1 + 1
-                while n_acc < limit and not needs[n_acc]:
-                    n_acc += 1
-            self.n_frames_discarded += real - n_acc
+                for j in range(n_acc):
+                    self._note_frame(fid(i + j), ts(i + j))
+                    self.trajectory.append((fid(i + j), int(out.ref_kf[j]),
+                                            out.T_rel[j]))
+                    self.stats.append({"frame": fid(i + j),
+                                       "inliers": int(out.n_inliers[j]),
+                                       "lost": False})
+                self.ref_kf_matches = int(out.n_ref_matches[n_acc - 1])
+                self.frames_since_kf += n_acc
+                last = n_acc - 1
+                # the chunk's visibility statistics up to its last accepted
+                # frame
+                vis, found = ((carry2.pt_visible, carry2.pt_found)
+                              if n_acc == C
+                              else (vis_snap[last], found_snap[last]))
 
-            for j in range(n_acc):
-                self._note_frame(fid(i + j), ts(i + j))
-                self.trajectory.append((fid(i + j), int(out.ref_kf[j]),
-                                        out.T_rel[j]))
-                self.stats.append({"frame": fid(i + j),
-                                   "inliers": int(out.n_inliers[j]),
-                                   "lost": False})
-            self.ref_kf_matches = int(out.n_ref_matches[n_acc - 1])
-            self.frames_since_kf += n_acc
-            last = n_acc - 1
-            # the chunk's visibility statistics up to its last accepted frame
-            vis, found = ((carry2.pt_visible, carry2.pt_found)
-                          if n_acc == C
-                          else (vis_snap[last], found_snap[last]))
+                if map_moved:
+                    # a deferred loop closure / global BA moved the map
+                    # while this chunk was in flight: accept the frames
+                    # (their anchors re-express automatically) but do not
+                    # insert from stale state — the c2 condition persists,
+                    # so the next chunk re-flags.  Rebuild the tracking
+                    # state in the corrected frame.
+                    ref = int(out.ref_kf[last])
+                    self.map = self.map._replace(pt_visible=vis,
+                                                 pt_found=found)
+                    self.last_T = (out.T_rel[last] @ self._kf_pose_np()[ref]
+                                   ).astype(np.float32)
+                    self.velocity = None
+                    self.last_kp_pt = kp_pts[last] if n_acc < C \
+                        else carry2.kp_pt
+                    self.last_level = frames.level[last] if n_acc < C \
+                        else carry2.level
+                    self.last_ref_kf = ref
+                    carry = None
+                    i += n_acc
+                    continue
 
-            if map_moved:
-                # a deferred loop closure / global BA moved the map while
-                # this chunk was in flight: accept the frames (their anchors
-                # re-express automatically) but do not insert from stale
-                # state — the c2 condition persists, so the next chunk
-                # re-flags.  Rebuild the tracking state in the corrected
-                # frame.
-                ref = int(out.ref_kf[last])
-                self.map = self.map._replace(pt_visible=vis, pt_found=found)
-                self.last_T = (out.T_rel[last]
-                               @ self._kf_pose_np()[ref]).astype(np.float32)
-                self.velocity = None
-                self.last_kp_pt = kp_pts[last] if n_acc < C else carry2.kp_pt
-                self.last_level = frames.level[last] if n_acc < C \
-                    else carry2.level
-                self.last_ref_kf = ref
-                carry = None
+                if j1 is not None and self._capacity_headroom_ok():
+                    # overlapped insert: queue the backend, chain the carry
+                    # on the device, defer the bookkeeping
+                    self.map = self.map._replace(pt_visible=vis,
+                                                 pt_found=found)
+                    # InterruptBA (LocalMapping.cc:615-631): a keyframe
+                    # inside the mapper cycle of the previous one gets the
+                    # truncated BA
+                    fs_at_flag = self.frames_since_kf - n_acc + j1 + 1
+                    ba_iters = 2 if fs_at_flag < self._mapper_busy_frames \
+                        else 4
+                    depth_j = kp_depths[j1] if kp_depths is not None \
+                        else None
+                    kf_i = self._host_n_kf
+                    with profiling.span("backend.insert", kf=kf_i):
+                        m2, _k, aux = lm.backend_insert(
+                            self.cfg, self.map, _frame_at(frames, j1),
+                            steps.T[j1], fid(i + j1), kp_pts[j1],
+                            depth_j is not None, depth_j, self.db.vocab,
+                            ba_iters=ba_iters)
+                    self.map = m2
+                    self._host_n_kf += 1
+                    self._host_n_pt += 2 * self.cfg.extractor.max_keypoints
+                    #   (conservative; exact at flush)
+                    self._note_inserted_keyframes(kf_i, 1)
+                    self._pending_kf.append((kf_i, aux, time.perf_counter()))
+                    self._kf_pose_dirty = True
+                    self.stats[-(n_acc - j1)]["keyframe"] = True
+                    self.trajectory[-(n_acc - j1)] = (
+                        fid(i + j1), kf_i, np.eye(4, dtype=np.float32))
+                    carry = tracking.chain_carry_after_insert(
+                        carry, m2, steps.T, kp_pts, frames.level, j1, last,
+                        kf_i, last - j1)
+                    self.frames_since_kf = last - j1
+                elif j1 is not None:
+                    # capacity watermark: synchronous insert (handles
+                    # compaction / growth), host-state rebuild
+                    self.map = self.map._replace(pt_visible=vis,
+                                                 pt_found=found)
+                    prev_T = out.T[last - 1] if last >= 1 else self.last_T
+                    self.last_T = out.T[last]
+                    self.velocity = self.last_T @ np.linalg.inv(prev_T) \
+                        if (last >= 1 or self.velocity is not None) else None
+                    self.last_kp_pt = kp_pts[last] if n_acc < C \
+                        else carry2.kp_pt
+                    self.last_level = frames.level[last] if n_acc < C \
+                        else carry2.level
+                    self.last_ref_kf = int(out.ref_kf[last])
+                    last_kf_i = self._insert_keyframes_batch(
+                        [(j1, fid(i + j1))], frames, kp_pts, out, kp_depths)
+                    self.stats[-(n_acc - j1)]["keyframe"] = True
+                    self.frames_since_kf = n_acc - 1 - j1
+                    self.trajectory[-(n_acc - j1)] = (
+                        fid(i + j1), last_kf_i, np.eye(4, dtype=np.float32))
+                    if j1 == n_acc - 1:
+                        # the keyframe is the final accepted frame: tracking
+                        # continues from its post-backend row and pose
+                        self.last_kp_pt = self.map.kf_obs_pt[last_kf_i]
+                        self.last_T = self._last_insert_pose
+                        self.last_ref_kf = last_kf_i
+                    carry = None
+                elif n_acc == C:
+                    carry = carry2        # clean chunk: chain on device
+                else:
+                    # degradation cut without keyframe: host-state rebuild
+                    self.map = self.map._replace(pt_visible=vis,
+                                                 pt_found=found)
+                    prev_T = out.T[last - 1] if last >= 1 else self.last_T
+                    self.last_T = out.T[last]
+                    self.velocity = self.last_T @ np.linalg.inv(prev_T) \
+                        if (last >= 1 or self.velocity is not None) else None
+                    self.last_kp_pt = kp_pts[last]
+                    self.last_level = frames.level[last]
+                    self.last_ref_kf = int(out.ref_kf[last])
+                    carry = None
                 i += n_acc
-                continue
-
-            if j1 is not None and self._capacity_headroom_ok():
-                # overlapped insert: queue the backend, chain the carry on
-                # the device, defer the bookkeeping
-                self.map = self.map._replace(pt_visible=vis, pt_found=found)
-                # InterruptBA (LocalMapping.cc:615-631): a keyframe inside
-                # the mapper cycle of the previous one gets the truncated BA
-                fs_at_flag = self.frames_since_kf - n_acc + j1 + 1
-                ba_iters = 2 if fs_at_flag < self._mapper_busy_frames else 4
-                depth_j = kp_depths[j1] if kp_depths is not None else None
-                m2, _k, aux = lm.backend_insert(
-                    self.cfg, self.map, _frame_at(frames, j1), steps.T[j1],
-                    fid(i + j1), kp_pts[j1], depth_j is not None, depth_j,
-                    self.db.vocab, ba_iters=ba_iters)
-                self.map = m2
-                kf_i = self._host_n_kf
-                self._host_n_kf += 1
-                self._host_n_pt += 2 * self.cfg.extractor.max_keypoints
-                #   (conservative; exact at flush)
-                self._note_inserted_keyframes(kf_i, 1)
-                self._pending_kf.append((kf_i, aux, time.perf_counter()))
-                self._kf_pose_dirty = True
-                self.stats[-(n_acc - j1)]["keyframe"] = True
-                self.trajectory[-(n_acc - j1)] = (
-                    fid(i + j1), kf_i, np.eye(4, dtype=np.float32))
-                carry = tracking.chain_carry_after_insert(
-                    carry, m2, steps.T, kp_pts, frames.level, j1, last, kf_i,
-                    last - j1)
-                self.frames_since_kf = last - j1
-            elif j1 is not None:
-                # capacity watermark: synchronous insert (handles
-                # compaction / growth), host-state rebuild
-                self.map = self.map._replace(pt_visible=vis, pt_found=found)
-                prev_T = out.T[last - 1] if last >= 1 else self.last_T
-                self.last_T = out.T[last]
-                self.velocity = self.last_T @ np.linalg.inv(prev_T) \
-                    if (last >= 1 or self.velocity is not None) else None
-                self.last_kp_pt = kp_pts[last] if n_acc < C else carry2.kp_pt
-                self.last_level = frames.level[last] if n_acc < C \
-                    else carry2.level
-                self.last_ref_kf = int(out.ref_kf[last])
-                last_kf_i = self._insert_keyframes_batch(
-                    [(j1, fid(i + j1))], frames, kp_pts, out, kp_depths)
-                self.stats[-(n_acc - j1)]["keyframe"] = True
-                self.frames_since_kf = n_acc - 1 - j1
-                self.trajectory[-(n_acc - j1)] = (
-                    fid(i + j1), last_kf_i, np.eye(4, dtype=np.float32))
-                if j1 == n_acc - 1:
-                    # the keyframe is the final accepted frame: tracking
-                    # continues from its post-backend row and pose
-                    self.last_kp_pt = self.map.kf_obs_pt[last_kf_i]
-                    self.last_T = self._last_insert_pose
-                    self.last_ref_kf = last_kf_i
-                carry = None
-            elif n_acc == C:
-                carry = carry2        # clean chunk: chain on device
-            else:
-                # degradation cut without keyframe: host-state rebuild
-                self.map = self.map._replace(pt_visible=vis, pt_found=found)
-                prev_T = out.T[last - 1] if last >= 1 else self.last_T
-                self.last_T = out.T[last]
-                self.velocity = self.last_T @ np.linalg.inv(prev_T) \
-                    if (last >= 1 or self.velocity is not None) else None
-                self.last_kp_pt = kp_pts[last]
-                self.last_level = frames.level[last]
-                self.last_ref_kf = int(out.ref_kf[last])
-                carry = None
-            i += n_acc
         self._flush_pending()
         if carry is not None:
             self._sync_host_from_carry(carry)
@@ -718,12 +759,13 @@ class System:
     def _sync_host_from_carry(self, carry: tracking.ChunkCarry):
         """Pull the chunk-carried tracking state back into the host
         mirrors."""
-        self.last_T = carry.T.cpu().numpy()
-        self.velocity = carry.vel.cpu().numpy() if bool(carry.has_vel) \
-            else None
+        with profiling.span("sync.chunk"):
+            self.last_T = carry.T.cpu().numpy()
+            self.velocity = carry.vel.cpu().numpy() \
+                if bool(carry.has_vel) else None
+            self.last_ref_kf = int(carry.ref_kf)
         self.last_kp_pt = carry.kp_pt
         self.last_level = carry.level
-        self.last_ref_kf = int(carry.ref_kf)
         self.map = self.map._replace(pt_visible=carry.pt_visible,
                                      pt_found=carry.pt_found)
 
@@ -739,7 +781,8 @@ class System:
         if closed:
             moved = True
             self.n_loops_closed += 1
-            m2 = lm.refresh_point_geometry(self.cfg, m2)
+            with profiling.span("loop.correct", kf=kf_i):
+                m2 = lm.refresh_point_geometry(self.cfg, m2)
             if self.stats:
                 self.stats[-1]["loop_closed"] = True
         return m2, moved
@@ -754,19 +797,24 @@ class System:
             return False
         pend = self._pending_kf
         self._pending_kf = []
-        rows = torch.stack([a["bow_row"] for _, a, _t in pend]).cpu().numpy()
-        n_pt = int(pend[-1][1]["n_pt"])
-        # readback ~= the queued backend finishing on the device
-        self._note_insert_cost(time.perf_counter() - pend[-1][2])
-        for (kf_i, _, _t), bow_row in zip(pend, rows):
-            self.db.add_row(kf_i, bow_row)
-        self._host_n_pt = n_pt
-        self.db.maybe_retrain(self.map)
-        moved = False
-        if self.loop_closer is not None:
-            covis_row = pend[-1][1]["covis_row"].cpu().numpy()
-            self.map, moved = self._close_loops(self.map, pend[-1][0],
-                                                covis_row)
+        kf_new = pend[-1][0]
+        with profiling.span("flush", kf=kf_new):
+            with profiling.span("sync.backend", kf=kf_new):
+                rows = torch.stack([a["bow_row"] for _, a, _t in pend]) \
+                    .cpu().numpy()
+                n_pt = int(pend[-1][1]["n_pt"])
+            # readback ~= the queued backend finishing on the device
+            self._note_insert_cost(time.perf_counter() - pend[-1][2])
+            for (kf_i, _, _t), bow_row in zip(pend, rows):
+                self.db.add_row(kf_i, bow_row)
+            self._host_n_pt = n_pt
+            self.db.maybe_retrain(self.map)
+            moved = False
+            if self.loop_closer is not None:
+                with profiling.span("sync.backend", kf=kf_new):
+                    covis_row = pend[-1][1]["covis_row"].cpu().numpy()
+                self.map, moved = self._close_loops(self.map, kf_new,
+                                                    covis_row)
         if moved:
             self._kf_pose_dirty = True
         return moved
@@ -782,45 +830,52 @@ class System:
         `_depth_for`, which recomputes it where the chunk gave none, is not
         ported: its one caller passes the chunk's depth whenever a sensor
         gives one, so it never runs in either package."""
-        cfg = self.cfg
-        N = cfg.extractor.max_keypoints
-        self._pending_pt_arrays = [kp_pts]
-        self._ensure_capacity(kf_headroom=len(jobs),
-                              pt_headroom=len(jobs) * N)
-        kp_pts = self._pending_pt_arrays[0]
-        self._pending_pt_arrays = []
-        pend = []
-        corr = None
-        for jq, frame_id in jobs:
-            frame_j = _frame_at(frames, jq)
-            depth_j = kp_depths[jq] if kp_depths is not None else None
-            T_raw = torch.as_tensor(out.T[jq], device=self.device)
-            T_in = T_raw if corr is None else T_raw @ corr
-            m, _k, aux = lm.backend_insert(
-                cfg, self.map, frame_j, T_in, frame_id, kp_pts[jq],
-                depth_j is not None, depth_j, self.db.vocab)
-            self.map = m
-            corr = geo.se3_inverse(T_raw) @ aux["pose"]
-            kf_i = self._host_n_kf
-            self._host_n_kf += 1
-            pend.append((kf_i, aux))
-        self._note_inserted_keyframes(pend[0][0], len(pend))
-        rows = torch.stack([a["bow_row"] for _, a in pend]).cpu().numpy()
-        for (kf_i, _), bow_row in zip(pend, rows):
-            self.db.add_row(kf_i, bow_row)
-        self._host_n_pt = int(pend[-1][1]["n_pt"])
-        # re-anchor the tracker's pose to the corrected map frame
-        j_last = jobs[-1][0]
-        T_post = pend[-1][1]["pose"].cpu().numpy()
-        self._last_insert_pose = T_post
-        self.last_T = (self.last_T @ np.linalg.inv(out.T[j_last])
-                       @ T_post).astype(np.float32)
-        self._kf_pose_dirty = True
-        self.db.maybe_retrain(self.map)
-        if self.loop_closer is not None:
-            covis_row = pend[-1][1]["covis_row"].cpu().numpy()
-            self.map, _ = self._close_loops(self.map, pend[-1][0], covis_row)
-        return pend[-1][0]
+        with profiling.span("backend.watermark") as sp:
+            cfg = self.cfg
+            N = cfg.extractor.max_keypoints
+            self._pending_pt_arrays = [kp_pts]
+            self._ensure_capacity(kf_headroom=len(jobs),
+                                  pt_headroom=len(jobs) * N)
+            kp_pts = self._pending_pt_arrays[0]
+            self._pending_pt_arrays = []
+            pend = []
+            corr = None
+            for jq, frame_id in jobs:
+                frame_j = _frame_at(frames, jq)
+                depth_j = kp_depths[jq] if kp_depths is not None else None
+                T_raw = torch.as_tensor(out.T[jq], device=self.device)
+                T_in = T_raw if corr is None else T_raw @ corr
+                kf_i = self._host_n_kf
+                with profiling.span("backend.insert", kf=kf_i):
+                    m, _k, aux = lm.backend_insert(
+                        cfg, self.map, frame_j, T_in, frame_id, kp_pts[jq],
+                        depth_j is not None, depth_j, self.db.vocab)
+                self.map = m
+                corr = geo.se3_inverse(T_raw) @ aux["pose"]
+                self._host_n_kf += 1
+                pend.append((kf_i, aux))
+            self._note_inserted_keyframes(pend[0][0], len(pend))
+            kf_new = pend[-1][0]
+            sp.set(kf=kf_new)
+            with profiling.span("sync.backend", kf=kf_new):
+                rows = torch.stack([a["bow_row"] for _, a in pend]) \
+                    .cpu().numpy()
+                self._host_n_pt = int(pend[-1][1]["n_pt"])
+                T_post = pend[-1][1]["pose"].cpu().numpy()
+            for (kf_i, _), bow_row in zip(pend, rows):
+                self.db.add_row(kf_i, bow_row)
+            # re-anchor the tracker's pose to the corrected map frame
+            j_last = jobs[-1][0]
+            self._last_insert_pose = T_post
+            self.last_T = (self.last_T @ np.linalg.inv(out.T[j_last])
+                           @ T_post).astype(np.float32)
+            self._kf_pose_dirty = True
+            self.db.maybe_retrain(self.map)
+            if self.loop_closer is not None:
+                with profiling.span("sync.backend", kf=kf_new):
+                    covis_row = pend[-1][1]["covis_row"].cpu().numpy()
+                self.map, _ = self._close_loops(self.map, kf_new, covis_row)
+        return kf_new
 
     def _note_inserted_keyframes(self, first_kf: int, count: int):
         """Hook after the chunked driver's inserts of keyframe slots
@@ -937,24 +992,29 @@ class System:
         it compacted the map."""
         self._ensure_capacity()
         has_depth = self._cur_depth is not None
-        m, k, aux = lm.backend_insert(
-            self.cfg, self.map, frame,
-            torch.as_tensor(self.last_T, dtype=torch.float32,
-                            device=self.device),
-            frame_id, self.last_kp_pt, has_depth, self._cur_depth,
-            self.db.vocab)
+        kf_next = self._host_n_kf
+        with profiling.span("backend.insert", kf=kf_next):
+            m, k, aux = lm.backend_insert(
+                self.cfg, self.map, frame,
+                torch.as_tensor(self.last_T, dtype=torch.float32,
+                                device=self.device),
+                frame_id, self.last_kp_pt, has_depth, self._cur_depth,
+                self.db.vocab)
         # one bundled readback: slot, point count, BoW row, pose
-        head = torch.stack([k.to(torch.int64), aux["n_pt"].to(torch.int64)])
-        (kf_i, n_pt), bow_row, pose = [
-            t.cpu().numpy() for t in (head, aux["bow_row"], aux["pose"])]
+        with profiling.span("sync.backend", kf=kf_next):
+            head = torch.stack([k.to(torch.int64),
+                                aux["n_pt"].to(torch.int64)])
+            (kf_i, n_pt), bow_row, pose = [
+                t.cpu().numpy() for t in (head, aux["bow_row"], aux["pose"])]
         kf_i = int(kf_i)
         self._host_n_kf = kf_i + 1
         self._host_n_pt = int(n_pt)
         self.db.add_row(kf_i, bow_row)
         self.db.maybe_retrain(m)
         if self.loop_closer is not None:
-            m, pose_moved = self._close_loops(
-                m, kf_i, aux["covis_row"].cpu().numpy())
+            with profiling.span("sync.backend", kf=kf_i):
+                covis_row = aux["covis_row"].cpu().numpy()
+            m, pose_moved = self._close_loops(m, kf_i, covis_row)
             if pose_moved:
                 # tracking references the corrected new-keyframe pose
                 pose = m.kf_pose[kf_i].cpu().numpy()
@@ -1022,15 +1082,17 @@ class System:
     def shutdown(self) -> dict:
         """Finish all queued work and report run statistics (reference
         System::Shutdown, System.h:97)."""
-        self._flush_pending()
-        if self.loop_closer is not None:
-            # flush a deferred global BA so the exported map is consistent
-            self.map = self.loop_closer.maybe_run_gba(self.map)
-            self._kf_pose_dirty = True
-        if self.device.type == "cuda":
-            torch.cuda.synchronize(self.device)
-        n_kf = int(self.map.kf_valid.sum())
-        n_pt = int(self.map.pt_valid.sum())
+        with profiling.span("session.shutdown"):
+            self._flush_pending()
+            if self.loop_closer is not None:
+                # flush a deferred global BA so the exported map is
+                # consistent
+                self.map = self.loop_closer.maybe_run_gba(self.map)
+                self._kf_pose_dirty = True
+            if self.device.type == "cuda":
+                torch.cuda.synchronize(self.device)
+            n_kf = int(self.map.kf_valid.sum())
+            n_pt = int(self.map.pt_valid.sum())
         return {"frames": self.n_frames_tracked, "keyframes": n_kf,
                 "map_points": n_pt, "loops_closed": self.n_loops_closed,
                 "relocalizations": self.n_relocalizations,

@@ -77,7 +77,6 @@ def test_main_on_cpu(hot, full, monkeypatch, capsys):
     """main's lines with the measurements already taken above."""
     monkeypatch.setattr(bench, "bench_hot_path", lambda *a, **k: hot)
     monkeypatch.setattr(bench, "bench_full_system", lambda *a, **k: full)
-    monkeypatch.setattr(bench, "bench_matcher", lambda *a, **k: 1.5)
     assert bench.main(["--device", "cpu", "--batch", "2", "--frames", "2",
                        "--repeats", "1"]) == 0
     lines = capsys.readouterr().out.strip().splitlines()
@@ -87,10 +86,6 @@ def test_main_on_cpu(hot, full, monkeypatch, capsys):
     last = json.loads(lines[-1])
     assert last == json.loads(json.dumps(bench.result_line(full, hot,
                                                            "cpu")))
-
-
-def test_matcher_on_cpu():
-    assert bench.bench_matcher(device="cpu", batch=2, reps=1) > 0
 
 
 def test_main_without_device_needs_a_gpu(monkeypatch):
