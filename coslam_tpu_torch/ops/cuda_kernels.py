@@ -9,8 +9,12 @@ coslam_tpu/ops/pallas_kernels.py), with their plain PyTorch twins.
     as packed gate records and skipping whatever holds nothing.
   * `pose_opt_lm`    (K3, csrc/pose_opt_lm.cu) — the whole motion-only LM
     in one thread block, one pass per step over observations in registers.
+  * `sim3_refine_lm` (K4, csrc/sim3_refine_lm.cu) — the Sim3 LM polish of
+    loop closing (5 steps, prune, 10 steps) in one thread block, K3's
+    design over landmark pairs.
 
-Each wrapper runs its `*_plain` twin for tensors on the CPU.  For CUDA
+Each wrapper runs its `*_plain` twin for tensors on the CPU; K4's twin is
+`sim3.refine_sim3_plain`, and `sim3.refine_sim3` makes that choice.  For CUDA
 tensors it launches the kernel or raises — there is no fallback.  Every
 launch adds one to `LAUNCHES[name]`, so a run can show which kernels it
 went through.
@@ -42,13 +46,14 @@ INF_I32 = 1 << 20
 _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG / "build"
-SOURCES = ("fast_score_nms.cu", "masked_match.cu", "pose_opt_lm.cu")
+SOURCES = ("fast_score_nms.cu", "masked_match.cu", "pose_opt_lm.cu",
+           "sim3_refine_lm.cu")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 # launches of each kernel since the last reset_launch_counts()
 LAUNCHES: Dict[str, int] = {"fast_score_nms": 0, "masked_match": 0,
-                            "pose_opt_lm": 0}
+                            "pose_opt_lm": 0, "sim3_refine_lm": 0}
 
 
 def reset_launch_counts() -> None:
@@ -128,11 +133,17 @@ def _lib() -> ctypes.CDLL:
     lib.coslam_pose_opt_lm.argtypes = [
         _P, _P, _P, _P, _I, _F, _F, _F, _F, _I, _I, _F, _P, _P, _P]
     lib.coslam_pose_opt_lm_register_limit.argtypes = []
+    lib.coslam_sim3_refine_lm.argtypes = [
+        _P, _P, _P, _P, _P, _P, _P, _P, _I, _F, _F, _F, _F, _I, _F, _I, _I,
+        _P, _P, _P, _P, _P]
+    lib.coslam_sim3_refine_lm_register_limit.argtypes = []
     for fn in (lib.coslam_fast_score_nms_pyramid,
                lib.coslam_masked_match_segments,
                lib.coslam_masked_match_query_block,
                lib.coslam_masked_match, lib.coslam_pose_opt_lm,
-               lib.coslam_pose_opt_lm_register_limit):
+               lib.coslam_pose_opt_lm_register_limit,
+               lib.coslam_sim3_refine_lm,
+               lib.coslam_sim3_refine_lm_register_limit):
         fn.restype = ctypes.c_int
     return lib
 
@@ -517,3 +528,45 @@ def pose_opt_lm(T_init, X, uv, isg_masked, *, fx, fy, cx, cy, rounds, iters,
     _raise_on(rc, "pose_opt_lm")
     LAUNCHES["pose_opt_lm"] += 1
     return T, inl
+
+
+# ---------------------------------------------------------------------------
+# K4: fused Sim3 LM polish
+# ---------------------------------------------------------------------------
+
+def sim3_refine_lm(x1c, x2c, uv1, uv2, s0, R0, t0, valid, *, fx, fy, cx, cy,
+                   fix_scale: bool, chi2_th: float, iters1: int, iters2: int):
+    """`sim3.refine_sim3`'s LM polish in one launch, for CUDA tensors.
+    x1c, x2c (N, 3) f32; uv1, uv2 (N, 2) f32; s0 () f32; R0 (3, 3); t0 (3,);
+    valid (N,) bool.  Returns (s, R, t, inliers (N,) bool), s shaped as s0.
+    CPU tensors raise: their polish is `sim3.refine_sim3_plain`."""
+    if not _on_cuda("sim3_refine_lm", x1c, x2c, uv1, uv2, s0, R0, t0,
+                    valid):
+        raise ValueError("sim3_refine_lm: CPU tensors take "
+                         "sim3.refine_sim3_plain")
+    n = x1c.shape[0]
+    x1c, x2c, uv1, uv2, R0, t0, valid = (t.contiguous() for t in (
+        x1c, x2c, uv1, uv2, R0, t0, valid))
+    s_flat = s0.reshape(1)
+    for name, t, dt, shape in (
+            ("x1c", x1c, torch.float32, (n, 3)),
+            ("x2c", x2c, torch.float32, (n, 3)),
+            ("uv1", uv1, torch.float32, (n, 2)),
+            ("uv2", uv2, torch.float32, (n, 2)),
+            ("s0", s_flat, torch.float32, (1,)),
+            ("R0", R0, torch.float32, (3, 3)),
+            ("t0", t0, torch.float32, (3,)),
+            ("valid", valid, torch.bool, (n,))):
+        _check(f"sim3_refine_lm {name}", t, dt, shape)
+    out = torch.empty(13, dtype=torch.float32, device=x1c.device)
+    inl = torch.empty(n, dtype=torch.bool, device=x1c.device)
+    o = out.data_ptr()
+    rc = _lib().coslam_sim3_refine_lm(
+        x1c.data_ptr(), x2c.data_ptr(), uv1.data_ptr(), uv2.data_ptr(),
+        valid.data_ptr(), s_flat.data_ptr(), R0.data_ptr(), t0.data_ptr(), n,
+        float(fx), float(fy), float(cx), float(cy), int(bool(fix_scale)),
+        float(chi2_th), int(iters1), int(iters2), o, o + 4, o + 40,
+        inl.data_ptr(), _stream(x1c))
+    _raise_on(rc, "sim3_refine_lm")
+    LAUNCHES["sim3_refine_lm"] += 1
+    return out[:1].view(s0.shape), out[1:10].view(3, 3), out[10:], inl

@@ -21,6 +21,7 @@ from typing import NamedTuple, Optional
 import torch
 
 from coslam_tpu_torch.config import CameraConfig
+from coslam_tpu_torch.ops import cuda_kernels as ck
 from coslam_tpu_torch.utils import geometry as geo
 
 
@@ -198,6 +199,22 @@ def sim3_residuals_jac(cam: CameraConfig, x1c, x2c, uv1, uv2, s, R, t,
 def refine_sim3(cam: CameraConfig, x1c, x2c, uv1, uv2, s0, R0, t0, valid,
                 fix_scale: bool = False, chi2_th: float = 10.0,
                 iters1: int = 5, iters2: int = 10):
+    """LM polish of a Sim3 S21 over matched pairs (`refine_sim3_plain`):
+    for CUDA tensors one launch of kernel K4 (`ck.sim3_refine_lm`), for CPU
+    tensors the plain version.  Returns (s, R, t, inliers)."""
+    if not ck._on_cuda("sim3_refine_lm", x1c, x2c, uv1, uv2, s0, R0, t0,
+                       valid):
+        return refine_sim3_plain(cam, x1c, x2c, uv1, uv2, s0, R0, t0, valid,
+                                 fix_scale, chi2_th, iters1, iters2)
+    return ck.sim3_refine_lm(x1c, x2c, uv1, uv2, s0, R0, t0, valid,
+                             fx=cam.fx, fy=cam.fy, cx=cam.cx, cy=cam.cy,
+                             fix_scale=fix_scale, chi2_th=chi2_th,
+                             iters1=iters1, iters2=iters2)
+
+
+def refine_sim3_plain(cam: CameraConfig, x1c, x2c, uv1, uv2, s0, R0, t0,
+                      valid, fix_scale: bool = False, chi2_th: float = 10.0,
+                      iters1: int = 5, iters2: int = 10):
     """Levenberg-Marquardt polish of a Sim3 S21 over matched camera-frame
     landmark pairs, minimizing BOTH projection directions (the reference's
     EdgeSim3ProjectXYZ + EdgeInverseSim3ProjectXYZ pairs, Optimizer.cc:

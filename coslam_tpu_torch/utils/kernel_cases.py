@@ -1,10 +1,12 @@
-"""Seeded inputs for kernels K1 `fast_score_nms_pyramid`, K2 `masked_match`
-and K3 `pose_opt_lm` at the shapes the tracking and mapping paths give them.
+"""Seeded inputs for kernels K1 `fast_score_nms_pyramid`, K2 `masked_match`,
+K3 `pose_opt_lm` and K4 `sim3_refine_lm` at the shapes the tracking,
+mapping and loop-closing paths give them.
 
 `chip_smoke.py` and `scripts/compare_torch_kernels.py` both walk `MATCH_CASES`
 and then `POSE_CASES` in order with one `numpy.random.default_rng(0)`, so the
 two time the same inputs under the same names; K1's input is a rendered
-frame and draws nothing.
+frame and draws nothing.  K4's cases draw from a generator of their own
+(`sim3_inputs` with `numpy.random.default_rng(SIM3_SEED)`, case by case).
 """
 
 from __future__ import annotations
@@ -127,3 +129,83 @@ def pose_inputs(rng, dev, n, n_live=None):
         torch.as_tensor(np.asarray(a, np.float32), device=dev)
         for a in (X, uv, isg)]
     return args, dict(POSE_KW), Tgt
+
+
+# K4: the loop closer's polish (chi2_th 9.21, 1024 keypoint slots at 1000
+# features).  (name, slots, valid pairs, fix_scale, scale of the true Sim3):
+# what a failed RANSAC hands over (0 and 3 pairs: most polishes in the
+# replay cell), one that closes a loop (20, 215), every slot valid, the
+# strided path above the register limit, the scale frozen, a scale near the
+# RANSAC's 1/16 floor.
+SIM3_CAM = dict(fx=400.0, fy=400.0, cx=320.0, cy=240.0, width=640,
+                height=480)
+SIM3_CHI2 = 9.21
+SIM3_SEED = 18
+SIM3_CASES = (("1024 slots, 0 valid", 1024, 0, False, 1.4),
+              ("1024 slots, 3 valid", 1024, 3, False, 1.4),
+              ("1024 slots, 20 valid", 1024, 20, False, 1.4),
+              ("1024 slots, 215 valid", 1024, 215, False, 1.4),
+              ("1024 slots, 1024 valid", 1024, 1024, False, 1.4),
+              ("2048 slots, 1800 valid", 2048, 1800, False, 1.4),
+              ("1024 slots, 215 valid, fix_scale", 1024, 215, True, 1.0),
+              ("1024 slots, 20 valid, fix_scale", 1024, 20, True, 1.0),
+              ("1024 slots, 215 valid, scale 0.07", 1024, 215, False, 0.07))
+SIM3_MAIN_PATH = SIM3_CASES[1][0]
+
+
+def sim3_inputs(rng, dev, n, n_valid, fix_scale=False, s_gt=1.4):
+    """(cam, args, kw) of one `sim3.refine_sim3` call: n slots of landmark
+    pairs in two keyframes' camera frames related by a Sim3 of scale s_gt,
+    0.3 px of pixel noise, a tenth of the valid pairs moved off it, and
+    n_valid valid pairs at random slots (the others hold pairs as well, as
+    the loop closer's do); the start is the true Sim3 perturbed by 3% in
+    scale (not under fix_scale), ~0.03 rad and 5% of its translation."""
+    from coslam_tpu_torch.config import CameraConfig
+
+    def rot(w):
+        th = np.linalg.norm(w)
+        K = np.array([[0, -w[2], w[1]], [w[2], 0, -w[0]],
+                      [-w[1], w[0], 0]]) / th
+        return np.eye(3) + np.sin(th) * K + (1 - np.cos(th)) * K @ K
+
+    cam = CameraConfig(**SIM3_CAM)
+    X1 = np.stack([rng.uniform(-2, 2, n), rng.uniform(-1.5, 1.5, n),
+                   rng.uniform(4, 9, n)], 1)
+    R_gt = rot(np.array([0.1, -0.2, 0.15]))
+    t_gt = np.array([0.5, -0.3, 0.8]) * s_gt
+    X2 = s_gt * X1 @ R_gt.T + t_gt
+
+    def proj(X):
+        return np.stack([X[:, 0] / X[:, 2] * cam.fx + cam.cx,
+                         X[:, 1] / X[:, 2] * cam.fy + cam.cy], 1)
+
+    uv1 = proj(X1) + rng.normal(0, 0.3, (n, 2))
+    uv2 = proj(X2) + rng.normal(0, 0.3, (n, 2))
+    valid = np.zeros(n, bool)
+    valid[rng.choice(n, n_valid, replace=False)] = True
+    bad = valid & (rng.uniform(size=n) < 0.1)
+    X2[bad] += rng.uniform(1, 3, (int(bad.sum()), 3)) * s_gt
+    s0 = s_gt if fix_scale else s_gt * 1.03
+    R0 = rot(np.array([0.02, -0.015, 0.01])) @ R_gt
+    t0 = t_gt + 0.05 * s_gt * np.array([1.0, -1.0, 1.0])
+    f32 = lambda a: torch.as_tensor(np.asarray(a, np.float32), device=dev)
+    args = (f32(X1), f32(X2), f32(uv1), f32(uv2), f32(s0), f32(R0),
+            f32(t0), torch.as_tensor(valid, device=dev))
+    return cam, args, dict(fix_scale=fix_scale, chi2_th=SIM3_CHI2)
+
+
+def sim3_gaps(sim3, cam, args, kw, got, ref, band=1e-3):
+    """(largest |difference| of s, R and t, pairs whose inlier flags differ
+    with neither gate error within `band` px^2 of chi2_th at the reference's
+    Sim3, pairs whose flags differ in all) between two outputs (s, R, t,
+    inliers) of `sim3.refine_sim3` on `args`; `sim3` is the module."""
+    err = max(float((a.float() - b.float()).abs().max())
+              for a, b in zip(got[:3], ref[:3]))
+    x1c, x2c, uv1, uv2 = args[:4]
+    r = sim3.sim3_residuals(cam, x1c, x2c, uv1, uv2,
+                            torch.zeros((1, 7), device=x1c.device),
+                            *ref[:3], kw.get("fix_scale", False))
+    e = torch.stack([(r[:, :2] ** 2).sum(-1), (r[:, 2:] ** 2).sum(-1)], -1)
+    near = ((e - kw["chi2_th"]).abs() < band).any(-1)
+    differ = got[3] != ref[3]
+    return err, int((differ & ~near).sum()), int(differ.sum())

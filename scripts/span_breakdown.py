@@ -24,7 +24,9 @@ CUDA activity only) and prints, as one JSON object (also written to
   * `idle_by_span`: the device-idle time of the window (no kernel, copy or
     memset running) by the innermost program span open over it, and the
     share under a span more specific than session.run;
-  * `idle_gaps`: the longest idle gaps, named by that span.
+  * `idle_gaps`: the longest idle gaps, named by that span;
+  * `sim3_polish`: the calls into `sim3.refine_sim3` over the whole run
+    (set-up and warm-up included) and the K4 launches meanwhile.
 
 `--cost` times a span on this host: with no profiler (the check alone),
 and with the benchmark's CUDA-only profiler running (record and
@@ -286,13 +288,26 @@ def main(argv=None) -> int:
         return inner(td, top)
 
     trace.breakdown = breakdown
+    from coslam_tpu_torch.ops import cuda_kernels as ck
+    from coslam_tpu_torch.ops import sim3
+    polish, calls = sim3.refine_sim3, [0]
+
+    def counted(*args, **kw):
+        calls[0] += 1
+        return polish(*args, **kw)
+
+    sim3.refine_sim3 = counted
+    k4 = ck.LAUNCHES["sim3_refine_lm"]
     try:
         res = hmain.run(cell, a.seed, a.seconds, True, T_PROCESS)
     finally:
         trace.breakdown = inner
+        sim3.refine_sim3 = polish
+    k4 = ck.LAUNCHES["sim3_refine_lm"] - k4
     from coslam_tpu_torch.utils import profiling
     out = analyse(kept["td"], profiling.spans(), res)
-    out.update(workload=a.workload, seed=a.seed)
+    out.update(workload=a.workload, seed=a.seed,
+               sim3_polish={"calls": calls[0], "k4_launches": k4})
     line = json.dumps(out)
     if a.out:
         os.makedirs(os.path.dirname(os.path.abspath(a.out)), exist_ok=True)

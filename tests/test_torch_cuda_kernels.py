@@ -12,6 +12,7 @@ import pytest
 import torch
 
 from coslam_tpu_torch.ops import cuda_kernels as ck
+from coslam_tpu_torch.utils import kernel_cases as kc
 
 pytestmark = pytest.mark.cuda
 
@@ -264,6 +265,60 @@ def test_pose_opt_lm_zero_rounds(dev, gen):
                             chi2_th=5.991)
     assert torch.equal(T, T0)
     assert torch.equal(inl.cpu(), torch.as_tensor(isg > 0))
+
+
+@pytest.mark.parametrize("case", range(len(kc.SIM3_CASES)),
+                         ids=[c[0] for c in kc.SIM3_CASES])
+def test_sim3_refine_lm(dev, case):
+    """K4 against its plain version (`sim3.refine_sim3_plain`) on the card,
+    through `sim3.refine_sim3`'s dispatch: one launch, s / R / t within
+    1e-4 (float32 sums in another order and the kernel's fast reciprocals
+    and roots part the two at ~1e-5 on 1024 pairs; the LM steps stay the
+    same), the inlier masks equal except for pairs whose gate error lies
+    within 1e-3 px^2 of chi2_th at the plain version's Sim3, where a
+    rounding decides."""
+    from coslam_tpu_torch.ops import sim3
+
+    name, n, n_valid, fix_scale, s_gt = kc.SIM3_CASES[case]
+    rng = np.random.default_rng([kc.SIM3_SEED, case])
+    cam, args, kw = kc.sim3_inputs(rng, dev, n, n_valid, fix_scale, s_gt)
+    before = ck.LAUNCHES["sim3_refine_lm"]
+    got = sim3.refine_sim3(cam, *args, **kw)
+    assert ck.LAUNCHES["sim3_refine_lm"] == before + 1
+    assert (n > ck._lib().coslam_sim3_refine_lm_register_limit()) \
+        == (n == 2048)
+    ref = sim3.refine_sim3_plain(cam, *args, **kw)
+    assert got[0].shape == ref[0].shape == ()
+    assert got[1].shape == (3, 3) and got[2].shape == (3,)
+    assert got[3].dtype == torch.bool and got[3].shape == (n,)
+    err, far, _ = kc.sim3_gaps(sim3, cam, args, kw, got, ref)
+    assert err <= 1e-4, name
+    assert far == 0, name
+    assert not bool(got[3][~args[7]].any())
+    if fix_scale:
+        assert float(got[0]) == float(args[4])
+    if n_valid == 0:                  # nothing to fit: the start comes back
+        for g, a in zip(got[:3], args[4:7]):
+            assert torch.equal(g, a)
+
+
+def test_sim3_refine_lm_repeated_and_rejects_bad_inputs(dev):
+    """Back-to-back launches agree bit for bit; a wrong type, a wrong shape
+    or mixed devices raise before any launch."""
+    cam, args, kw = kc.sim3_inputs(np.random.default_rng(3), dev, 1024, 215)
+    kk = dict(fx=cam.fx, fy=cam.fy, cx=cam.cx, cy=cam.cy, iters1=5,
+              iters2=10, **kw)
+    a = ck.sim3_refine_lm(*args, **kk)
+    b = ck.sim3_refine_lm(*args, **kk)
+    assert all(torch.equal(x, y) for x, y in zip(a, b))
+    before = ck.LAUNCHES["sim3_refine_lm"]
+    with pytest.raises(TypeError):
+        ck.sim3_refine_lm(*args[:7], args[7].float(), **kk)
+    with pytest.raises(ValueError):
+        ck.sim3_refine_lm(args[0][:, :2].contiguous(), *args[1:], **kk)
+    with pytest.raises(ValueError):
+        ck.sim3_refine_lm(*args[:4], args[4].cpu(), *args[5:], **kk)
+    assert ck.LAUNCHES["sim3_refine_lm"] == before
 
 
 def test_track_step_graph_replay_equals_eager(dev):

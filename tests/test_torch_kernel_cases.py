@@ -15,6 +15,9 @@ def test_named_cases_exist():
     assert set(kc.MATCH_MAPPING_PAIR) | set(kc.MATCH_MAPPING_PAIR_DENSE) \
         <= set(names)
     assert kc.POSE_MAIN_PATH in [c[0] for c in kc.POSE_CASES]
+    sim3_names = [c[0] for c in kc.SIM3_CASES]
+    assert len(set(sim3_names)) == len(sim3_names)
+    assert kc.SIM3_MAIN_PATH in sim3_names
 
 
 def test_fast_inputs_through_the_twin():
@@ -50,3 +53,28 @@ def test_pose_inputs_are_solvable(n, n_live):
     np.testing.assert_allclose(T.numpy(), Tgt, atol=2e-2)
     assert not bool(inl[args[3] == 0].any())
     assert torch.equal(args[0], torch.eye(4))
+
+
+@pytest.mark.parametrize("n,n_valid,fix_scale,s_gt", [
+    (64, 0, False, 1.4), (64, 20, False, 1.4), (64, 20, True, 1.0),
+    (128, 60, False, 0.07)])
+def test_sim3_inputs_are_solvable(n, n_valid, fix_scale, s_gt):
+    """The polish's plain version recovers the Sim3 the pairs were made
+    from (and leaves the start alone with no valid pair); `sim3_gaps` of
+    an output against itself is nothing."""
+    from coslam_tpu_torch.ops import sim3
+
+    cam, args, kw = kc.sim3_inputs(np.random.default_rng(0), "cpu", n,
+                                   n_valid, fix_scale, s_gt)
+    assert [tuple(a.shape) for a in args] == [(n, 3), (n, 3), (n, 2),
+                                              (n, 2), (), (3, 3), (3,), (n,)]
+    assert int(args[7].sum()) == n_valid and args[7].dtype == torch.bool
+    assert kw == dict(fix_scale=fix_scale, chi2_th=kc.SIM3_CHI2)
+    out = sim3.refine_sim3_plain(cam, *args, **kw)
+    assert kc.sim3_gaps(sim3, cam, args, kw, out, out) == (0.0, 0, 0)
+    assert not bool(out[3][~args[7]].any())
+    if n_valid == 0:
+        assert all(torch.equal(o, a) for o, a in zip(out[:3], args[4:7]))
+        return
+    assert abs(float(out[0]) / s_gt - 1.0) < (1e-6 if fix_scale else 0.02)
+    assert int(out[3].sum()) >= 0.7 * n_valid

@@ -15,7 +15,9 @@ from coslam_tpu.config import CameraConfig as JCam
 from coslam_tpu.ops import sim3 as jsim3
 from coslam_tpu.utils import geometry as jgeo
 from coslam_tpu_torch.config import CameraConfig as TCam
+from coslam_tpu_torch.ops import cuda_kernels as ck
 from coslam_tpu_torch.ops import sim3 as tsim3
+from coslam_tpu_torch.utils import kernel_cases as kc
 
 KW = dict(fx=450, fy=450, cx=320, cy=240, width=640, height=480)
 JC, TC = JCam(**KW), TCam(**KW)
@@ -181,3 +183,35 @@ def test_residual_jacobian_matches_jacfwd(rng, fix_scale):
     np.testing.assert_allclose(
         r.numpy(), tsim3.sim3_residuals(TC, *args, torch.zeros(1, 7), *sRt,
                                         fix_scale).numpy(), atol=1e-4)
+
+
+@pytest.mark.parametrize("case", [2, 3, 6])
+def test_refine_sim3_cpu_takes_the_plain_version(case):
+    """On CPU tensors `refine_sim3` is its plain version, bit for bit, and
+    launches no kernel (K4, `ck.sim3_refine_lm`, is for CUDA tensors; its
+    card test is in tests/test_torch_cuda_kernels.py)."""
+    name, n, n_valid, fix_scale, s_gt = kc.SIM3_CASES[case]
+    cam, args, kw = kc.sim3_inputs(np.random.default_rng([kc.SIM3_SEED, case]),
+                                   "cpu", n, n_valid, fix_scale, s_gt)
+    before = dict(ck.LAUNCHES)
+    got = tsim3.refine_sim3(cam, *args, **kw)
+    assert ck.LAUNCHES == before
+    ref = tsim3.refine_sim3_plain(cam, *args, **kw)
+    assert all(torch.equal(a, b) for a, b in zip(got, ref))
+    # the case's polish has work to do and keeps the gate's pairs
+    err, far, n_diff = kc.sim3_gaps(tsim3, cam, args, kw, got, ref)
+    assert err == 0.0 and far == n_diff == 0
+    assert float((got[2] - args[6]).abs().max()) > 1e-3
+    assert 0 < int(got[3].sum()) <= n_valid
+    assert not bool(got[3][~args[7]].any())
+
+
+def test_sim3_refine_lm_rejects_cpu_tensors():
+    """The kernel's wrapper takes CUDA tensors only: the dispatch is
+    `refine_sim3`'s, with no fallback inside the wrapper."""
+    cam, args, kw = kc.sim3_inputs(np.random.default_rng(0), "cpu", 64, 20)
+    before = dict(ck.LAUNCHES)
+    with pytest.raises(ValueError, match="refine_sim3_plain"):
+        ck.sim3_refine_lm(*args, fx=cam.fx, fy=cam.fy, cx=cam.cx, cy=cam.cy,
+                          iters1=5, iters2=10, **kw)
+    assert ck.LAUNCHES == before
