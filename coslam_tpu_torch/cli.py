@@ -332,18 +332,28 @@ def drive_coop(a0, a1, seq, split0: int, start1: int, bus,
     # not dropped (the reference's Map_KFV staging map, ros_mono.cc:178,540)
     pending = {0: [], 1: []}
 
+    def publish(sender, agent):
+        with profiling.span("coop.publish") as sp:
+            pkts = agent.drain_packets(max_batch=max_batch)
+            bus.publish(sender, pkts, subscribers=[0, 1])
+            sp.set(packets=len(pkts))
+
+    def drain(agent_id):
+        with profiling.span("coop.drain") as sp:
+            got = bus.drain(agent_id, **drain_kw)
+            sp.set(packets=len(got))
+        pending[agent_id].extend(got)
+
     def pump():
         with timer("exchange"):
-            bus.publish(1, a1.drain_packets(max_batch=max_batch),
-                        subscribers=[0, 1])
+            publish(1, a1)
             if bidirectional:
-                bus.publish(0, a0.drain_packets(max_batch=max_batch),
-                            subscribers=[0, 1])
-                pending[1].extend(bus.drain(1, **drain_kw))
+                publish(0, a0)
+                drain(1)
                 if a1.state == "OK":
                     while pending[1]:
                         a1.receive_packet(pending[1].pop(0))
-            pending[0].extend(bus.drain(0, **drain_kw))
+            drain(0)
             if a0.state == "OK":
                 while pending[0]:
                     a0.receive_packet(pending[0].pop(0))

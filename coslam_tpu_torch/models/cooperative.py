@@ -50,6 +50,14 @@ from coslam_tpu_torch.utils import profiling
 from coslam_tpu_torch.utils.device import DEFAULT_DEVICE
 
 
+# the gates of one cross-agent Sim3 search (CoopAgent._find_cross_sim3) in
+# the order a candidate meets them: no own keyframe scores in the BoW
+# database, too few landmark matches in the shortlist, too few matched
+# pairs, too few RANSAC inliers, the RANSAC scale outside its window, the
+# polished Sim3 rejected (inliers or scale); `ok` is a verified Sim3
+GATES = ("bow", "count", "pairs", "ransac", "scale", "polish", "ok")
+
+
 class KeyFramePacket(NamedTuple):
     """Wire keyframe — the analog of lcmKeyFrameInfo (reference
     include/lcmKeyFrame/lcmKeyFrameInfo.hpp:25-150)."""
@@ -174,6 +182,12 @@ class CoopAgent(System):
         # per-agent world alignment (s, R, t): x_local = s R x_sender + t
         self._agent_sim3: Dict[int, Tuple[float, np.ndarray, np.ndarray]] = {}
         self.n_merges = 0
+        self.n_realigns = 0
+        self.packets_integrated = 0
+        # _try_merge attempts by the gate of _find_cross_sim3 that ended
+        # them (GATES); `last_gate` is the latest search's
+        self.merge_gates: Dict[str, int] = dict.fromkeys(GATES, 0)
+        self.last_gate = ""
         # injected cross-agent Sim3 draws per (foreign keyframe, candidate)
         self.cross_sim3_draws: Dict[Tuple[int, int], np.ndarray] = {}
 
@@ -181,6 +195,27 @@ class CoopAgent(System):
         """Landmarks that have no owner yet belong to `agent_id`."""
         self.pt_agent[self.map.pt_valid.cpu().numpy()
                       & (self.pt_agent < 0)] = agent_id
+
+    def _need_keyframe(self, n_inliers, need_close=False):
+        # nMinObs is 2 while the map holds at most 2 keyframes
+        # (Tracking.cc:985-990).  The tracker counts map.n_kf, which here
+        # includes an unmerged sender's keyframes in this map's slots; the
+        # reference stages those apart (Map_KFV, ros_mono.cc:178,540), so
+        # its young own map is counted alone.  Counting them raises nMinObs
+        # to 3 and starves that map of keyframes.
+        n_kf = self._host_n_kf
+        pending = [a for a in self._foreign_agents
+                   if not self.merged_agents.get(a)]
+        if n_kf > 2 and pending and np.count_nonzero(
+                ~np.isin(self.kf_agent[:n_kf], pending)) <= 2:
+            m = self.map
+            row = m.kf_obs_pt[self.last_ref_kf]
+            safe = torch.clamp(row, min=0).long()
+            ok = (row >= 0) & m.kf_kp_valid[self.last_ref_kf] \
+                & m.pt_valid[safe]
+            self.ref_kf_matches = int(
+                (ok & (ms.point_obs_count(m)[safe] >= 2)).sum())
+        return super()._need_keyframe(n_inliers, need_close)
 
     # -- bookkeeping hooks -------------------------------------------------
     def _insert_keyframe(self, frame, frame_id):
@@ -271,6 +306,7 @@ class CoopAgent(System):
             self._foreign_agents.add(pkt.agent_id)
             merged = self.merged_agents.get(pkt.agent_id, False)
             k = self._integrate_packet(pkt, full_backend=merged)
+            self.packets_integrated += 1
             sp.set(kf=k)
             if not merged:
                 return self._try_merge(k, pkt.agent_id)
@@ -384,17 +420,23 @@ class CoopAgent(System):
             own, fore = self._own_and_foreign(aid)
             if len(fore) == 0 or own.sum() < 2:
                 continue
-            best = []
-            for k in fore:
-                scores = self.db.scores_against_all(int(k))
-                s = float(np.where(own, scores, -1.0).max())
-                best.append((s, int(k)))
+            best = [(self._best_own_score(own, k), int(k)) for k in fore]
             best.sort(reverse=True)
             for s, k in best[:2]:
                 if s <= 0.02:
                     break
                 if self._try_merge(k, aid):
                     break
+
+    def _best_own_score(self, own: np.ndarray, kf) -> float:
+        """Keyframe `kf`'s best BoW score against the own keyframes (`own`,
+        a mask over the database's rows), -1 where there are none.  Only
+        those rows are scored: every row is a pass over the whole
+        vocabulary, and this runs for each foreign keyframe."""
+        rows = np.nonzero(own)[0]
+        if len(rows) == 0:
+            return -1.0
+        return float(self.db.scores_against_all(int(kf), rows).max())
 
     def _backend_pass(self, kf: int, agent_id: int):
         """The back-end pass for keyframe `kf` of `agent_id`'s sub-map."""
@@ -409,8 +451,10 @@ class CoopAgent(System):
         component is similarity-transformed into the local frame, duplicate
         landmarks fuse, and the alignment is stored so that later packets
         arrive pre-transformed."""
-        with profiling.span("coop.merge", kf=foreign_kf):
+        with profiling.span("coop.merge", kf=foreign_kf) as sp:
             found = self._find_cross_sim3(foreign_kf)
+            self.merge_gates[self.last_gate] += 1
+            sp.set(gate=self.last_gate)
             if found is None:
                 return False
             S_w, pt1, pt2, pairs = found
@@ -431,9 +475,7 @@ class CoopAgent(System):
             for k in fore:
                 if int(k) == int(foreign_kf):
                     continue
-                s = float(np.where(own, self.db.scores_against_all(int(k)),
-                                   -1.0).max())
-                scored.append((s, int(k)))
+                scored.append((self._best_own_score(own, k), int(k)))
             scored.sort(reverse=True)
             for s, k in scored[:3]:
                 if s <= 0.02:
@@ -476,6 +518,7 @@ class CoopAgent(System):
         K = self.db.bows.shape[0]
         own = (self.kf_agent[:K] == self.agent_id) \
             & m.kf_valid.cpu().numpy()[:K]
+        self.last_gate = "bow"
         if cfg.loop.brute_force_shortlist:
             counts = lc.match_counts_all(cfg, m, foreign_kf).cpu().numpy()
             counts = np.where(own[: counts.shape[0]], counts, -1)
@@ -495,12 +538,19 @@ class CoopAgent(System):
             counts[np.asarray(bow_cands)] = counts_sub
             order = [int(bow_cands[i]) for i in np.argsort(-counts_sub)[:3]]
         s_max = cfg.loop.sim3_max_scale ** 2
+        reached = GATES.index("count")
+
+        def stop(gate):
+            nonlocal reached
+            reached = max(reached, GATES.index(gate))
+
         for cand in order:
             if counts[cand] < cfg.loop.sim3_min_bow_matches:
                 continue
             idx2, pt1, pt2, ok = lc.match_pair_points(cfg, m, foreign_kf,
                                                       cand)
             if int(ok.sum()) < cfg.loop.sim3_min_bow_matches:
+                stop("pairs")
                 continue
             samples, gen = self._cross_draws(foreign_kf, cand)
             res = lc.sim3_between(cfg, m, foreign_kf, cand, idx2, pt1, pt2,
@@ -509,12 +559,14 @@ class CoopAgent(System):
                 [res.n_inliers.to(torch.float64),
                  res.s.to(torch.float64)]).cpu().numpy()
             if int(n_inl) < max(8, cfg.loop.sim3_min_inliers // 2):
+                stop("ransac")
                 continue
             # scale sanity: two mono agents' maps are each normalized by
             # their median depth at initialisation, so their relative scale
             # is bounded; the cross-agent bound is the square of the
             # intra-map one
             if not (1.0 / s_max < float(s_hat) < s_max):
+                stop("scale")
                 continue
             # SearchBySim3-style expansion + polish; the acceptance gate
             # applies to the EXPANDED inlier set
@@ -525,9 +577,9 @@ class CoopAgent(System):
             n_inl, s_hat = torch.stack(
                 [res.n_inliers.to(torch.float64),
                  res.s.to(torch.float64)]).cpu().numpy()
-            if int(n_inl) < cfg.loop.sim3_min_inliers:
-                continue
-            if not (1.0 / s_max < float(s_hat) < s_max):
+            if int(n_inl) < cfg.loop.sim3_min_inliers \
+                    or not (1.0 / s_max < float(s_hat) < s_max):
+                stop("polish")
                 continue
             # S21: foreign-KF camera -> own-KF camera.  World to world:
             # S_wOwn_wFor = T_own^-1 o S21 o T_for (as Sim3)
@@ -535,7 +587,9 @@ class CoopAgent(System):
             S21 = {"s": res.s, "R": res.R, "t": res.t}
             T_for = geo.sim3_from_se3(m.kf_pose[foreign_kf])
             S_w = geo.sim3_compose(T_own, geo.sim3_compose(S21, T_for))
+            self.last_gate = "ok"
             return S_w, pt1, pt2, ok & res.inliers
+        self.last_gate = GATES[reached]
         return None
 
     def _apply_cross_sim3(self, agent_id: int, S_w, pt1, pt2, pairs,
@@ -564,47 +618,53 @@ class CoopAgent(System):
         against the own map; a verified RESIDUAL Sim3 (the component is
         already in the local frame) re-corrects the whole foreign component
         and composes into the stored alignment."""
-        found = self._find_cross_sim3(foreign_kf)
-        if found is None:
-            return False
-        S_res, pt1, pt2, pairs = found
-        # the component is ALREADY aligned, so a valid correction is near
-        # the identity: a wildly scaled Sim3 can carry many RANSAC inliers
-        # (the reprojection test is blind to (s, t) -> (a s, a t)), and
-        # applying one would wreck the merged map
-        s = float(S_res["s"])
-        R = S_res["R"].cpu().numpy()
-        t = S_res["t"].cpu().numpy()
-        ang = np.degrees(np.arccos(np.clip((np.trace(R) - 1) / 2, -1, 1)))
-        if not (0.8 < s < 1.25) or ang > 15.0:
-            return False
-        # and it must move the fused pairs' duplicates closer together
-        pairs_np = pairs.cpu().numpy()
-        p1 = pt1.cpu().numpy()
-        p2 = pt2.cpu().numpy()
-        sel = pairs_np & (p1 != p2)
-        if sel.sum() >= 6:
-            idx = torch.from_numpy(np.concatenate([p1[sel], p2[sel]])) \
-                .long().to(self.device)
-            ab = self.map.pt_pos[idx].cpu().numpy()
-            a, b = ab[: sel.sum()], ab[sel.sum():]
-            pre = np.median(np.linalg.norm(a - b, axis=1))
-            post = np.median(np.linalg.norm((s * a @ R.T + t) - b, axis=1))
-            if post >= pre:
+        with profiling.span("coop.realign", kf=foreign_kf) as sp:
+            found = self._find_cross_sim3(foreign_kf)
+            sp.set(gate=self.last_gate)
+            if found is None:
                 return False
-        self._apply_cross_sim3(agent_id, S_res, pt1, pt2, pairs, ba_iters=4)
-        # compose: x_local_new = S_res(x_local_old), x_local_old =
-        # S_old(x_sender)
-        s0, R0, t0 = self._agent_sim3[agent_id]
-        dev = self.device
-        S_old = geo.sim3(s0, torch.as_tensor(R0, device=dev),
-                         torch.as_tensor(t0, device=dev))
-        S_new = geo.sim3_compose(S_res, S_old)
-        self._agent_sim3[agent_id] = (
-            float(S_new["s"]), S_new["R"].cpu().numpy(),
-            S_new["t"].cpu().numpy())
-        self.n_merges += 1
-        return True
+            S_res, pt1, pt2, pairs = found
+            # the component is ALREADY aligned, so a valid correction is
+            # near the identity: a wildly scaled Sim3 can carry many RANSAC
+            # inliers (the reprojection test is blind to (s, t) -> (a s,
+            # a t)), and applying one would wreck the merged map
+            s = float(S_res["s"])
+            R = S_res["R"].cpu().numpy()
+            t = S_res["t"].cpu().numpy()
+            ang = np.degrees(np.arccos(np.clip((np.trace(R) - 1) / 2,
+                                               -1, 1)))
+            if not (0.8 < s < 1.25) or ang > 15.0:
+                return False
+            # and it must move the fused pairs' duplicates closer together
+            pairs_np = pairs.cpu().numpy()
+            p1 = pt1.cpu().numpy()
+            p2 = pt2.cpu().numpy()
+            sel = pairs_np & (p1 != p2)
+            if sel.sum() >= 6:
+                idx = torch.from_numpy(np.concatenate([p1[sel], p2[sel]])) \
+                    .long().to(self.device)
+                ab = self.map.pt_pos[idx].cpu().numpy()
+                a, b = ab[: sel.sum()], ab[sel.sum():]
+                pre = np.median(np.linalg.norm(a - b, axis=1))
+                post = np.median(np.linalg.norm((s * a @ R.T + t) - b,
+                                                axis=1))
+                if post >= pre:
+                    return False
+            self._apply_cross_sim3(agent_id, S_res, pt1, pt2, pairs,
+                                   ba_iters=4)
+            # compose: x_local_new = S_res(x_local_old), x_local_old =
+            # S_old(x_sender)
+            s0, R0, t0 = self._agent_sim3[agent_id]
+            dev = self.device
+            S_old = geo.sim3(s0, torch.as_tensor(R0, device=dev),
+                             torch.as_tensor(t0, device=dev))
+            S_new = geo.sim3_compose(S_res, S_old)
+            self._agent_sim3[agent_id] = (
+                float(S_new["s"]), S_new["R"].cpu().numpy(),
+                S_new["t"].cpu().numpy())
+            self.n_merges += 1
+            self.n_realigns += 1
+            return True
 
 
 def serialize_packet(pkt: KeyFramePacket) -> bytes:
@@ -646,17 +706,33 @@ class UdpBus:
 
         self.channel = channel
         self._tp = native.Transport(group_ip, port)
+        # receive buffer, grown to the largest message seen: the
+        # transport's default is a fresh 64 MiB buffer a call, zeroed and
+        # copied whole, tens of ms of host memory traffic per call
+        self._buf_len = 1 << 20
 
     def publish(self, sender: int, pkts: List[KeyFramePacket],
                 subscribers=None):
         for p in pkts:
             self._tp.publish(self.channel, serialize_packet(p))
 
+    def _receive(self, timeout_ms: int):
+        try:
+            return self._tp.receive(timeout_ms=timeout_ms,
+                                    max_len=self._buf_len)
+        except OSError:
+            # a message above the buffer stays queued: take it with the
+            # transport's default buffer
+            msg = self._tp.receive(timeout_ms=timeout_ms)
+            if msg is not None:
+                self._buf_len = max(self._buf_len, len(msg[1]))
+            return msg
+
     def drain(self, agent_id: int, timeout_ms: int = 200
               ) -> List[KeyFramePacket]:
         out = []
         while True:
-            msg = self._tp.receive(timeout_ms=timeout_ms if not out else 20)
+            msg = self._receive(timeout_ms if not out else 20)
             if msg is None:
                 break
             channel, data = msg

@@ -150,16 +150,21 @@ class KeyFrameDatabase:
         self._w_cache = (self._version, idf, w)
         return idf, w
 
-    def scores_against_all(self, kf_id: int) -> np.ndarray:
-        """tf-idf-weighted L1 similarity of `kf_id` vs every stored KF."""
-        return self.scores_for_bow(self.bows[kf_id])
+    def scores_against_all(self, kf_id: int,
+                           rows: Optional[np.ndarray] = None) -> np.ndarray:
+        """tf-idf-weighted L1 similarity of `kf_id` vs every stored KF, or
+        vs the KFs of `rows` alone (the same numbers, in their order)."""
+        return self.scores_for_bow(self.bows[kf_id], rows)
 
-    def scores_for_bow(self, row: np.ndarray) -> np.ndarray:
+    def scores_for_bow(self, row: np.ndarray,
+                       rows: Optional[np.ndarray] = None) -> np.ndarray:
         """tf-idf-weighted L1 similarity of an external BoW row vs every
-        stored KF."""
+        stored KF, or vs the KFs of `rows` alone."""
         idf, w = self._tfidf_weights()
         q = row * idf
         q = q / max(np.abs(q).sum(), 1e-9)
+        if rows is not None:
+            w = w[rows]
         return 1.0 - 0.5 * np.abs(w - q[None]).sum(1)
 
     # ------------------------------------------------------------------

@@ -14,13 +14,14 @@ returns one shared no-op object and reads no clock.  On, it keeps a record
 (`spans()`): the name, `start_ns` / `end_ns` from `time.time_ns()` (the
 clock of the profiler's events), the index of the enclosing open span of
 the same thread (`parent`, -1 at the top) and the ids of its request
-(`kf=` a keyframe slot, `frame=` the first frame of a chunk or step), and
+(`kf=` a keyframe slot, `frame=` the first frame of a chunk or step;
+`gate=` and `packets=` on the coop spans), and
 opens a `torch.profiler.record_function(name)` range inside those two
 stamps, so a Chrome trace shows the same spans.  A span never synchronises
 and never reads a tensor: a `sync.*` span wraps a readback the program
 makes anyway, and its length is the host's wait for the device.
 
-The spans, at the layer boundaries of the replay path:
+The spans, at the layer boundaries of the replay and coop paths:
 
   session.new          System.__init__ (map, place-recognition DB, loop closer)
   session.run          System.run_sequence, whole
@@ -42,7 +43,14 @@ The spans, at the layer boundaries of the replay path:
   loop.correct         correct_loop and the geometry refresh (kf)
   sync.loop            each readback of the loop closer (kf)
   coop.receive_packet  CoopAgent.receive_packet (kf)
-  coop.merge           CoopAgent._try_merge (kf)
+  coop.merge           CoopAgent._try_merge (kf; gate, the gate of the
+                       cross-agent Sim3 search that ended the attempt:
+                       bow, count, pairs, ransac, scale, polish or ok)
+  coop.realign         CoopAgent._try_realign (kf; gate, as coop.merge)
+  coop.publish         cli.drive_coop: the sender's drain_packets and
+                       bus.publish (packets)
+  coop.drain           cli.drive_coop: bus.drain, mostly the bus's timed
+                       wait (packets)
 
 `spans_in_window`, `self_ns` and `union_ns` are the arithmetic the
 benchmark's readers of these spans share.

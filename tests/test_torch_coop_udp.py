@@ -45,8 +45,8 @@ class Tap:
         self.sent.append(bytes(data))
         self.tp.publish(channel, data)
 
-    def receive(self, timeout_ms=100):
-        got = self.tp.receive(timeout_ms=timeout_ms)
+    def receive(self, timeout_ms=100, **kw):
+        got = self.tp.receive(timeout_ms=timeout_ms, **kw)
         if got is not None and got[0] == self.channel:
             self.received.append(got[1])
         return got
@@ -94,6 +94,29 @@ def test_a_full_pump_arrives_complete_and_byte_equal():
         for k in tcoop.KeyFramePacket._fields:
             np.testing.assert_array_equal(np.asarray(getattr(a, k)),
                                           np.asarray(getattr(b, k)), k)
+
+
+def test_a_packet_above_the_receive_buffer_arrives_and_grows_it():
+    """A packet larger than the bus's receive buffer is taken whole with
+    the transport's default buffer, and the buffer grows to it."""
+    m = _merge_map()
+    k = int(np.nonzero(m.kf_valid.numpy())[0][0])
+    pkts = [tcoop.pack_keyframe(m, k, 1)] * 2
+    bus = _bus(PORT0)
+    bus._buf_len = 1000
+    try:
+        bus.publish(1, pkts)
+        got = bus.drain(0, timeout_ms=500)
+    finally:
+        bus.close()
+    tap = bus._tp
+    assert len(tap.sent[0]) > 1000
+    assert tap.received == tap.sent
+    assert bus._buf_len == len(tap.sent[0])
+    assert len(got) == 2
+    for k in tcoop.KeyFramePacket._fields:
+        np.testing.assert_array_equal(np.asarray(getattr(got[1], k)),
+                                      np.asarray(getattr(pkts[1], k)), k)
 
 
 def test_bus_drains_its_own_channel_alone():
