@@ -57,8 +57,8 @@ import torch
 
 from coslam_tpu_torch import config as cfg_mod
 from coslam_tpu_torch import entry as ent
-from coslam_tpu_torch.ops import cuda_kernels as ck
 from coslam_tpu_torch.utils import synthetic
+from coslam_tpu_torch.utils.cuda_graph import capture
 from coslam_tpu_torch.utils.device import DEFAULT_DEVICE, resolve_device
 
 BASELINE_FPS = 30.0     # the reference tracker's real-time rate (bench.py)
@@ -94,32 +94,6 @@ def best_seconds(fn: Callable, dev: torch.device, reps: int = 5) -> float:
         _sync(dev)
         best = min(best, time.perf_counter() - t0)
     return best
-
-
-class Graph(NamedTuple):
-    replay: Callable[[], None]
-    out: object                # the captured outputs, refreshed by replay
-    launches: Dict[str, int]   # kernel launches recorded while capturing
-
-
-def capture(fn: Callable, dev: torch.device, warmup: int = 2) -> Graph:
-    """`fn()` captured as one CUDA graph, after `warmup` eager calls on the
-    capture stream (the torch.cuda.graphs recipe: they build the kernels,
-    fill the cached tables and allocate the matcher's per-stream scratch
-    before capture).  A capture that fails raises."""
-    s = torch.cuda.Stream(dev)
-    s.wait_stream(torch.cuda.current_stream(dev))
-    with torch.cuda.stream(s):
-        for _ in range(warmup):
-            fn()
-    torch.cuda.current_stream(dev).wait_stream(s)
-    g = torch.cuda.CUDAGraph()
-    before = dict(ck.LAUNCHES)
-    with torch.cuda.graph(g, stream=s):
-        out = fn()
-    launched = {k: ck.LAUNCHES[k] - before[k] for k in KERNELS}
-    _sync(dev)
-    return Graph(g.replay, out, launched)
 
 
 def hot_path_frames(seed: int = 0, batch: int = 64) -> np.ndarray:

@@ -205,6 +205,9 @@ class System:
         self._insert_cost_s: Optional[float] = None
         self.n_frames_chunked = 0
         self.n_frames_discarded = 0
+        # chunks that ran as a CUDA graph (captured or replayed,
+        # tracking.ChunkGraphs)
+        self.n_chunks_graphed = 0
         self._pf_cooldown = 0
 
     # ------------------------------------------------------------------
@@ -539,7 +542,7 @@ class System:
                         self._pf_cooldown = max(self._pf_cooldown, 1)
                 i += 1
                 continue
-            with profiling.span("track.chunk", frame=fid(i)):
+            with profiling.span("track.chunk", frame=fid(i)) as chunk_sp:
                 real = min(C, n - i)
                 src = [i + j for j in range(real)] \
                     + [i + real - 1] * (C - real)
@@ -561,6 +564,9 @@ class System:
                  kp_depths) = tracking.track_chunk(
                     self.cfg, self.map, imgs, not self.localization_only,
                     carry, aux_imgs, mapper_latency=ml)
+                graphed = tracking.CHUNK_GRAPHS.last
+                chunk_sp.set(graph=graphed)
+                self.n_chunks_graphed += graphed != "eager"
                 if aux_imgs is None:
                     kp_depths = None
                 # the previous chunk's deferred keyframe bookkeeping
@@ -1098,6 +1104,7 @@ class System:
                 "relocalizations": self.n_relocalizations,
                 "frames_chunked": self.n_frames_chunked,
                 "frames_discarded": self.n_frames_discarded,
+                "chunks_graphed": self.n_chunks_graphed,
                 "chunk_discard_rate": round(
                     self.n_frames_discarded
                     / max(self.n_frames_chunked, 1), 4)}

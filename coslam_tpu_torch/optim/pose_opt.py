@@ -6,8 +6,10 @@ reprojection edges, Huber delta = sqrt(5.991) in rounds 1-2, chi2 outlier
 re-classification between rounds (reference Optimizer.cc:239-451).
 `optimize_pose` runs kernel K3 (ops/cuda_kernels.pose_opt_lm) — its plain
 twin for CPU tensors — on every device, the route the reference takes on
-the TPU.  `_optimize_pose_xla_testonly` is the reference's XLA formulation,
-kept as the independent reference for tests.
+the TPU, through `cuda_graph.host_launch`: inside the chunk tracker's
+segmented graph each replay launches it from the host.
+`_optimize_pose_xla_testonly` is the reference's XLA formulation, kept as
+the independent reference for tests.
 """
 
 from __future__ import annotations
@@ -19,6 +21,7 @@ import torch
 from coslam_tpu_torch.config import CameraConfig, TrackerConfig
 from coslam_tpu_torch.ops import cuda_kernels as ck
 from coslam_tpu_torch.ops.cuda_kernels import chol_solve6  # noqa: F401
+from coslam_tpu_torch.utils import cuda_graph
 from coslam_tpu_torch.utils import geometry as geo
 
 
@@ -33,7 +36,8 @@ def optimize_pose(cam: CameraConfig, T_init, X, uv, valid, inv_sigma2,
     """X: (N, 3) world points; uv: (N, 2) observed (undistorted) pixels;
     valid: (N,) bool; inv_sigma2: (N,) per-observation information."""
     isg_m = torch.where(valid, inv_sigma2, 0.0).to(torch.float32)
-    T, inl = ck.pose_opt_lm(
+    T, inl = cuda_graph.host_launch(
+        ck, "pose_opt_lm",
         T_init.to(torch.float32), X.to(torch.float32).contiguous(),
         uv.to(torch.float32).contiguous(), isg_m,
         fx=cam.fx, fy=cam.fy, cx=cam.cx, cy=cam.cy,

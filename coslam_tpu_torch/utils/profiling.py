@@ -15,7 +15,7 @@ returns one shared no-op object and reads no clock.  On, it keeps a record
 clock of the profiler's events), the index of the enclosing open span of
 the same thread (`parent`, -1 at the top) and the ids of its request
 (`kf=` a keyframe slot, `frame=` the first frame of a chunk or step;
-`gate=` and `packets=` on the coop spans), and
+`graph=` on `track.chunk`; `gate=` and `packets=` on the coop spans), and
 opens a `torch.profiler.record_function(name)` range inside those two
 stamps, so a Chrome trace shows the same spans.  A span never synchronises
 and never reads a tensor: a `sync.*` span wraps a readback the program
@@ -26,7 +26,9 @@ The spans, at the layer boundaries of the replay and coop paths:
   session.new          System.__init__ (map, place-recognition DB, loop closer)
   session.run          System.run_sequence, whole
   session.shutdown     System.shutdown
-  track.chunk          one chunk of run_sequence (frame)
+  track.chunk          one chunk of run_sequence (frame; graph, how
+                       tracking.track_chunk ran it: capture, replay or
+                       eager)
   track.frame          one frame on the per-frame path (frame)
   sync.chunk           the chunk's result readback, the carry's readback
   sync.frame           the per-frame path's first readback (frame)

@@ -269,6 +269,10 @@ def test_spans_placed_at_the_layers(runs):
     # fills, a flush its newest pending keyframe
     chunks = [r.ids["frame"] for r in recs if r.name == "track.chunk"]
     assert chunks == sorted(chunks) and chunks[0] > 0
+    # on the CPU every chunk runs eagerly: no CUDA graph
+    assert {r.ids["graph"] for r in recs if r.name == "track.chunk"} \
+        == {"eager"}
+    assert on.n_chunks_graphed == 0
     kfs = [r.ids["kf"] for r in recs if r.name == "backend.insert"]
     assert kfs == list(range(2, 2 + len(kfs)))
     flushed = [r.ids["kf"] for r in recs if r.name == "flush"]
@@ -282,8 +286,9 @@ def test_tracing_changes_nothing(runs):
     ids_off, T_off = off.trajectory_poses()
     assert ids_on == ids_off and np.array_equal(T_on, T_off)
     assert on.stats == off.stats
-    for k in ("n_frames_chunked", "n_frames_discarded", "n_loops_closed",
-              "n_frames_tracked", "_host_n_kf", "_host_n_pt"):
+    for k in ("n_frames_chunked", "n_frames_discarded", "n_chunks_graphed",
+              "n_loops_closed", "n_frames_tracked", "_host_n_kf",
+              "_host_n_pt"):
         assert getattr(on, k) == getattr(off, k), k
     assert on.loop_closer.n_host_syncs == off.loop_closer.n_host_syncs
     assert on.db.n_device_reads == off.db.n_device_reads

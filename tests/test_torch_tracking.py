@@ -126,6 +126,37 @@ def test_track_chunk_matches_reference(saved_map):
     assert (tkp == jkp).mean() >= 0.95
 
 
+@pytest.mark.parametrize("case", ["tracked", "fallback", "no_reference"])
+def test_chunk_body_matches_per_frame_branch(saved_map, case):
+    """The chunk's branchless composition (`_chunk_track_body`, a
+    torch.where over an always-computed reference-keyframe candidate)
+    equals the per-frame path's `_track_body`, whose fallback is a Python
+    `if` on a synced scalar, bit for bit: on a frame the motion model
+    tracks (no fallback), on one it loses with a reference keyframe (the
+    fallback taken) and on one it loses with none (no fallback)."""
+    path, seq = saved_map
+    ts = TSystem(_cfg(tcfg), device="cpu")
+    tck.load_system(path, ts)
+    cfg, m = _cfg(tcfg), ts.map
+    frame = ttr.build_frame(torch.from_numpy(seq[12]), cfg)
+    c = ts._carry_from_host()
+    kp_pt = c.kp_pt if case == "tracked" else torch.full_like(c.kp_pt, -1)
+    ref_kf = torch.tensor(-1 if case == "no_reference" else int(m.n_kf) - 1,
+                          dtype=torch.int32)
+    T_pred = torch.where(c.has_vel, c.vel @ c.T, c.T)
+    radius = torch.where(c.has_vel, torch.tensor(15.0), torch.tensor(30.0))
+    args = (cfg, m, frame, kp_pt, c.level, T_pred, radius)
+    n1, res, m2 = ttr._track_body(*args, ref_kf=ref_kf)
+    cn1, cres, cm2 = ttr._chunk_track_body(*args, ref_kf)
+    assert n1.dtype == cn1.dtype and torch.equal(n1, cn1)
+    for a, b in zip(res + tuple(m2), cres + tuple(cm2)):
+        assert a.dtype == b.dtype and torch.equal(a, b)
+    motion = ttr._motion_model(*args)
+    assert (int(motion.n_inliers) >= 10) == (case == "tracked")
+    assert (not torch.equal(motion.n_inliers, n1)) == (case == "fallback")
+    assert int(res.n_inliers) >= (10 if case != "no_reference" else 0)
+
+
 def test_unported_paths_raise():
     """What is still unported raises, naming its ROADMAP item: of the
     library nothing now; the CLI's dataset modes exit naming item 17 (their
