@@ -3524,14 +3524,18 @@ class WatermarkWatch:
     watermark that fired (`_ensure_capacity` replaced the map) as (frame of
     the keyframe being inserted, n_kf and n_pt before, after the
     compaction, K and P after), with `lifecycle_invariants` checked after
-    it; each insert call with CUDA events (`timed`) and the host syncs
-    inside it (`count_syncs`, under CUDA sync debug mode)."""
+    it; each synchronous insert call with CUDA events (`timed`) and the
+    host syncs inside it (`count_syncs`, under CUDA sync debug mode).  The
+    port's System has one synchronous insert, `_insert_keyframe`; the JAX
+    package's System also has `_insert_keyframes_batch`, wrapped where
+    present."""
 
     def __init__(self, slam, timed: bool = False, count_syncs: bool = False,
                  invariants: bool = True):
         self.events, self.inserts = [], []
         frame = [-1]
-        batch0, one0 = slam._insert_keyframes_batch, slam._insert_keyframe
+        one0 = slam._insert_keyframe
+        batch0 = getattr(slam, "_insert_keyframes_batch", None)
         ensure0 = slam._ensure_capacity
 
         def around(call, frame_id):
@@ -3563,7 +3567,7 @@ class WatermarkWatch:
         def ensure(*a, **kw):
             old = slam.map
             before = (int(old.n_kf), int(old.n_pt))
-            ensure0(*a, **kw)
+            out = ensure0(*a, **kw)
             if slam.map is not old:
                 self.events.append(
                     (frame[0], *before, slam._host_n_kf, slam._host_n_pt,
@@ -3572,8 +3576,11 @@ class WatermarkWatch:
                 if invariants:
                     lifecycle_invariants(
                         slam, f"after the watermark at frame {frame[0]}")
+            return out
 
-        slam._insert_keyframes_batch, slam._insert_keyframe = batch, one
+        slam._insert_keyframe = one
+        if batch0 is not None:
+            slam._insert_keyframes_batch = batch
         slam._ensure_capacity = ensure
 
     def watermark_ms(self):

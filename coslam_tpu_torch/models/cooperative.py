@@ -218,16 +218,9 @@ class CoopAgent(System):
         return super()._need_keyframe(n_inliers, need_close)
 
     # -- bookkeeping hooks -------------------------------------------------
-    def _insert_keyframe(self, frame, frame_id):
-        k_before = self._host_n_kf
-        kf_i = super()._insert_keyframe(frame, frame_id)
-        self.kf_agent[k_before:self._host_n_kf] = self.agent_id
-        self._tag_new_points(self.agent_id)
-        self._merge_retry()
-        return kf_i
-
     def _note_inserted_keyframes(self, first_kf: int, count: int):
-        # the chunked driver's inserts bypass _insert_keyframe: tag here
+        # every own insert ends here, with the slots it filled after any
+        # compaction
         self.kf_agent[first_kf: first_kf + count] = self.agent_id
         self._tag_new_points(self.agent_id)
         self._merge_retry()

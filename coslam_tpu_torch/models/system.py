@@ -8,7 +8,7 @@ keyframe backend (`local_mapping.backend_insert`) with its BoW row into the
 `KeyFrameDatabase` and loop closing on the new keyframe
 (`loop_closing.LoopCloser`: detection, Sim3 verification, loop correction,
 deferred global BA) — through `track_mono` and the chunked
-`run_sequence` (overlapped inserts chained on the device, synchronous batch
+`run_sequence` (overlapped inserts chained on the device, synchronous
 inserts at capacity watermarks with compaction / growth), `track_stereo`
 and `track_rgbd` (per-keypoint depth from `tracking.sensor_depth`, landmarks
 from depth at each keyframe, the close-point keyframe term); the LOST state
@@ -46,7 +46,6 @@ from coslam_tpu_torch.models import map_state as ms
 from coslam_tpu_torch.models import tracking
 from coslam_tpu_torch.models.frame import Frame, build_frame
 from coslam_tpu_torch.ops import matching, twoview
-from coslam_tpu_torch.utils import geometry as geo
 from coslam_tpu_torch.utils import profiling
 from coslam_tpu_torch.utils.device import DEFAULT_DEVICE, resolve_device
 
@@ -151,6 +150,13 @@ def _frame_at(frames: Frame, j: int) -> Frame:
     return Frame(*[a[j] for a in frames])
 
 
+def _remap_pts(a: torch.Tensor, pt_map: np.ndarray, device) -> torch.Tensor:
+    """Landmark bindings through a compaction's point-slot map."""
+    a = a.cpu().numpy()
+    return torch.from_numpy(np.where(
+        a >= 0, pt_map[np.maximum(a, 0)], -1).astype(np.int32)).to(device)
+
+
 class System:
     """SLAM engine instance (reference System ctor System.cc:32 +
     TrackMonocular / TrackStereo / TrackRGBD) on `device`: the GPU unless
@@ -187,10 +193,8 @@ class System:
         self._host_n_kf = 0   # exact host mirror of map.n_kf
         self._host_n_pt = 0   # host mirror of map.n_pt (exact after flushes)
         self._pending_kf: List[tuple] = []
-        self._pending_pt_arrays: List[torch.Tensor] = []
         self._kf_pose_host: Optional[np.ndarray] = None
         self._kf_pose_dirty = True
-        self._last_insert_pose: Optional[np.ndarray] = None
         # injected RANSAC draws per initialisation frame id, and per
         # (n_frames_tracked, candidate keyframe) of a relocalization attempt
         # (see module doc)
@@ -445,7 +449,18 @@ class System:
         self.stats.append({"frame": frame_id, "inliers": n_inl, "lost": False})
         if not self.localization_only \
                 and self._need_keyframe(n_inl, need_close):
-            self._insert_keyframe(frame, frame_id)
+            kf_i, pose, moved = self._insert_keyframe(
+                frame, frame_id, self.last_T, self.last_kp_pt,
+                self._cur_depth)
+            if moved:
+                # tracking references the corrected new-keyframe pose
+                pose = self.map.kf_pose[kf_i].cpu().numpy()
+            self.last_T = pose
+            self.last_kp_pt = self.map.kf_obs_pt[kf_i]
+            self.last_ref_kf = kf_i
+            self.frames_since_kf = 0
+            self.stats[-1]["keyframe"] = True
+            self._note_inserted_keyframes(kf_i, 1)
             # the frame is the new keyframe: report its BA-adjusted pose
             T_np = np.asarray(self.last_T)
         return T_np
@@ -491,7 +506,7 @@ class System:
         queued on the device, the carry chained with
         `tracking.chain_carry_after_insert`, its bookkeeping deferred to
         the next chunk) or, at a capacity watermark, synchronously
-        (`_insert_keyframes_batch`, which may compact the map).
+        (`_insert_keyframe`, which may compact the map).
         `depths` (RGB-D) / `right_images` (stereo) ride along with the
         images: per frame on the per-frame path, stacked per chunk as
         `track_chunk`'s `aux_imgs`."""
@@ -620,39 +635,32 @@ class System:
                 self.ref_kf_matches = int(out.n_ref_matches[n_acc - 1])
                 self.frames_since_kf += n_acc
                 last = n_acc - 1
-                # the chunk's visibility statistics up to its last accepted
-                # frame
-                vis, found = ((carry2.pt_visible, carry2.pt_found)
-                              if n_acc == C
-                              else (vis_snap[last], found_snap[last]))
+                # the chunk's state at its last accepted frame: visibility
+                # statistics, bindings and level
+                if n_acc == C:
+                    at_last = (carry2.pt_visible, carry2.pt_found,
+                               carry2.kp_pt, carry2.level)
+                else:
+                    at_last = (vis_snap[last], found_snap[last],
+                               kp_pts[last], frames.level[last])
 
                 if map_moved:
                     # a deferred loop closure / global BA moved the map
                     # while this chunk was in flight: accept the frames
                     # (their anchors re-express automatically) but do not
                     # insert from stale state — the c2 condition persists,
-                    # so the next chunk re-flags.  Rebuild the tracking
-                    # state in the corrected frame.
-                    ref = int(out.ref_kf[last])
-                    self.map = self.map._replace(pt_visible=vis,
-                                                 pt_found=found)
-                    self.last_T = (out.T_rel[last] @ self._kf_pose_np()[ref]
-                                   ).astype(np.float32)
-                    self.velocity = None
-                    self.last_kp_pt = kp_pts[last] if n_acc < C \
-                        else carry2.kp_pt
-                    self.last_level = frames.level[last] if n_acc < C \
-                        else carry2.level
-                    self.last_ref_kf = ref
+                    # so the next chunk re-flags
+                    self._adopt_chunk_frame(out, last, *at_last,
+                                            reexpress=True)
                     carry = None
-                    i += n_acc
-                    continue
-
-                if j1 is not None and self._capacity_headroom_ok():
-                    # overlapped insert: queue the backend, chain the carry
-                    # on the device, defer the bookkeeping
-                    self.map = self.map._replace(pt_visible=vis,
-                                                 pt_found=found)
+                elif j1 is not None and self._has_headroom(
+                        2 * self.cfg.extractor.max_keypoints):
+                    # overlapped insert (it cannot need compaction or
+                    # growth, which remap slot ids and must synchronize):
+                    # queue the backend, chain the carry on the device,
+                    # defer the bookkeeping
+                    self.map = self.map._replace(pt_visible=at_last[0],
+                                                 pt_found=at_last[1])
                     # InterruptBA (LocalMapping.cc:615-631): a keyframe
                     # inside the mapper cycle of the previous one gets the
                     # truncated BA
@@ -672,7 +680,6 @@ class System:
                     self._host_n_kf += 1
                     self._host_n_pt += 2 * self.cfg.extractor.max_keypoints
                     #   (conservative; exact at flush)
-                    self._note_inserted_keyframes(kf_i, 1)
                     self._pending_kf.append((kf_i, aux, time.perf_counter()))
                     self._kf_pose_dirty = True
                     self.stats[-(n_acc - j1)]["keyframe"] = True
@@ -683,50 +690,66 @@ class System:
                         kf_i, last - j1)
                     self.frames_since_kf = last - j1
                 elif j1 is not None:
-                    # capacity watermark: synchronous insert (handles
-                    # compaction / growth), host-state rebuild
-                    self.map = self.map._replace(pt_visible=vis,
-                                                 pt_found=found)
-                    prev_T = out.T[last - 1] if last >= 1 else self.last_T
-                    self.last_T = out.T[last]
-                    self.velocity = self.last_T @ np.linalg.inv(prev_T) \
-                        if (last >= 1 or self.velocity is not None) else None
-                    self.last_kp_pt = kp_pts[last] if n_acc < C \
-                        else carry2.kp_pt
-                    self.last_level = frames.level[last] if n_acc < C \
-                        else carry2.level
-                    self.last_ref_kf = int(out.ref_kf[last])
-                    last_kf_i = self._insert_keyframes_batch(
-                        [(j1, fid(i + j1))], frames, kp_pts, out, kp_depths)
+                    # capacity watermark: the tracker adopts the last
+                    # accepted frame, then a synchronous insert (which may
+                    # compact or grow the map)
+                    self._adopt_chunk_frame(out, last, *at_last)
+                    with profiling.span("backend.watermark") as sp:
+                        kf_i, T_post, _moved = self._insert_keyframe(
+                            _frame_at(frames, j1), fid(i + j1), out.T[j1],
+                            kp_pts[j1],
+                            kp_depths[j1] if kp_depths is not None
+                            else None)
+                        sp.set(kf=kf_i)
+                    # re-anchor the tracker's pose to the keyframe's
+                    # post-BA pose (read before loop closing)
+                    self.last_T = (self.last_T @ np.linalg.inv(out.T[j1])
+                                   @ T_post).astype(np.float32)
                     self.stats[-(n_acc - j1)]["keyframe"] = True
-                    self.frames_since_kf = n_acc - 1 - j1
+                    self.frames_since_kf = last - j1
                     self.trajectory[-(n_acc - j1)] = (
-                        fid(i + j1), last_kf_i, np.eye(4, dtype=np.float32))
-                    if j1 == n_acc - 1:
+                        fid(i + j1), kf_i, np.eye(4, dtype=np.float32))
+                    if j1 == last:
                         # the keyframe is the final accepted frame: tracking
                         # continues from its post-backend row and pose
-                        self.last_kp_pt = self.map.kf_obs_pt[last_kf_i]
-                        self.last_T = self._last_insert_pose
-                        self.last_ref_kf = last_kf_i
+                        self.last_kp_pt = self.map.kf_obs_pt[kf_i]
+                        self.last_T = T_post
+                        self.last_ref_kf = kf_i
+                    self._note_inserted_keyframes(kf_i, 1)
                     carry = None
                 elif n_acc == C:
                     carry = carry2        # clean chunk: chain on device
                 else:
-                    # degradation cut without keyframe: host-state rebuild
-                    self.map = self.map._replace(pt_visible=vis,
-                                                 pt_found=found)
-                    prev_T = out.T[last - 1] if last >= 1 else self.last_T
-                    self.last_T = out.T[last]
-                    self.velocity = self.last_T @ np.linalg.inv(prev_T) \
-                        if (last >= 1 or self.velocity is not None) else None
-                    self.last_kp_pt = kp_pts[last]
-                    self.last_level = frames.level[last]
-                    self.last_ref_kf = int(out.ref_kf[last])
+                    # degradation cut without keyframe
+                    self._adopt_chunk_frame(out, last, *at_last)
                     carry = None
                 i += n_acc
         self._flush_pending()
         if carry is not None:
             self._sync_host_from_carry(carry)
+
+    def _adopt_chunk_frame(self, out: tracking.ChunkStep, j: int, vis,
+                           found, kp_pt, level, reexpress: bool = False):
+        """The tracker takes the chunk's frame `j` as its last frame: the
+        visibility statistics up to it, its bindings, level, reference
+        keyframe and pose, with the velocity from the frame before.  After
+        a correction moved the keyframes (`reexpress`), the pose is the
+        frame's relative pose carried onto its reference keyframe's
+        corrected pose, and the velocity is dropped."""
+        self.map = self.map._replace(pt_visible=vis, pt_found=found)
+        ref = int(out.ref_kf[j])
+        if reexpress:
+            self.last_T = (out.T_rel[j] @ self._kf_pose_np()[ref]
+                           ).astype(np.float32)
+            self.velocity = None
+        else:
+            prev_T = out.T[j - 1] if j >= 1 else self.last_T
+            self.last_T = out.T[j]
+            self.velocity = self.last_T @ np.linalg.inv(prev_T) \
+                if (j >= 1 or self.velocity is not None) else None
+        self.last_kp_pt = kp_pt
+        self.last_level = level
+        self.last_ref_kf = ref
 
     def _reexpress_last_T(self, kf_pose_before: torch.Tensor):
         """After a correction moved the keyframes: carry the tracker's pose
@@ -737,14 +760,13 @@ class System:
                        @ self._kf_pose_np()[r]).astype(np.float32)
         self.velocity = None
 
-    def _capacity_headroom_ok(self) -> bool:
-        """True when the overlapped insert cannot need compaction or
-        growth (which remap slot ids and must synchronize)."""
-        K = self.cfg.mapper.max_keyframes
-        P = self.cfg.mapper.max_points
-        N = self.cfg.extractor.max_keypoints
-        return (self._host_n_kf + 1 < K - 1
-                and self._host_n_pt + 2 * N < 0.95 * P)
+    def _has_headroom(self, pt_headroom: int) -> bool:
+        """True while one more keyframe and `pt_headroom` more points stay
+        below the capacity watermarks (checked against the host mirrors of
+        n_kf / n_pt)."""
+        return (self._host_n_kf + 1 < self.cfg.mapper.max_keyframes - 1
+                and self._host_n_pt + pt_headroom
+                < 0.95 * self.cfg.mapper.max_points)
 
     def _carry_from_host(self) -> tracking.ChunkCarry:
         dev = self.device
@@ -794,98 +816,90 @@ class System:
         return m2, moved
 
     def _flush_pending(self) -> bool:
-        """Collect the deferred bookkeeping of overlapped inserts: BoW rows
-        into the place-recognition DB, the exact point count, the deferred
-        global BA and loop closing on the newest keyframe.  Returns True if
-        the map's poses moved (loop closure / global BA), which invalidates
-        any chunk carry in flight."""
+        """Commit the deferred bookkeeping of overlapped inserts
+        (`_commit_keyframes`).  Returns True if the map's poses moved (loop
+        closure / global BA), which invalidates any chunk carry in
+        flight."""
         if not self._pending_kf:
             return False
         pend = self._pending_kf
         self._pending_kf = []
-        kf_new = pend[-1][0]
-        with profiling.span("flush", kf=kf_new):
-            with profiling.span("sync.backend", kf=kf_new):
-                rows = torch.stack([a["bow_row"] for _, a, _t in pend]) \
-                    .cpu().numpy()
-                n_pt = int(pend[-1][1]["n_pt"])
-            # readback ~= the queued backend finishing on the device
-            self._note_insert_cost(time.perf_counter() - pend[-1][2])
-            for (kf_i, _, _t), bow_row in zip(pend, rows):
-                self.db.add_row(kf_i, bow_row)
-            self._host_n_pt = n_pt
-            self.db.maybe_retrain(self.map)
-            moved = False
-            if self.loop_closer is not None:
-                with profiling.span("sync.backend", kf=kf_new):
-                    covis_row = pend[-1][1]["covis_row"].cpu().numpy()
-                self.map, moved = self._close_loops(self.map, kf_new,
-                                                    covis_row)
-        if moved:
-            self._kf_pose_dirty = True
+        with profiling.span("flush", kf=pend[-1][0]):
+            moved, _ = self._commit_keyframes(
+                [(kf_i, aux) for kf_i, aux, _t in pend],
+                queued_at=pend[-1][2])
+        for kf_i, _aux, _t in pend:
+            self._note_inserted_keyframes(kf_i, 1)
         return moved
 
-    def _insert_keyframes_batch(self, jobs, frames, kp_pts, out,
-                                kp_depths=None) -> int:
-        """Insert a chunk's flagged keyframes synchronously, after making
-        room for all of them (`_ensure_capacity`, which may compact the
-        map and remap the chunk's pending bindings).  Each insert's pose
-        is re-expressed in the map frame left by the previous insert's BA
-        (raw_pose @ corr).  A depth-sensor keyframe takes its per-keypoint
-        depth from the chunk (`kp_depths`, None for mono).  The reference's
-        `_depth_for`, which recomputes it where the chunk gave none, is not
-        ported: its one caller passes the chunk's depth whenever a sensor
-        gives one, so it never runs in either package."""
-        with profiling.span("backend.watermark") as sp:
-            cfg = self.cfg
-            N = cfg.extractor.max_keypoints
-            self._pending_pt_arrays = [kp_pts]
-            self._ensure_capacity(kf_headroom=len(jobs),
-                                  pt_headroom=len(jobs) * N)
-            kp_pts = self._pending_pt_arrays[0]
-            self._pending_pt_arrays = []
-            pend = []
-            corr = None
-            for jq, frame_id in jobs:
-                frame_j = _frame_at(frames, jq)
-                depth_j = kp_depths[jq] if kp_depths is not None else None
-                T_raw = torch.as_tensor(out.T[jq], device=self.device)
-                T_in = T_raw if corr is None else T_raw @ corr
-                kf_i = self._host_n_kf
-                with profiling.span("backend.insert", kf=kf_i):
-                    m, _k, aux = lm.backend_insert(
-                        cfg, self.map, frame_j, T_in, frame_id, kp_pts[jq],
-                        depth_j is not None, depth_j, self.db.vocab)
-                self.map = m
-                corr = geo.se3_inverse(T_raw) @ aux["pose"]
-                self._host_n_kf += 1
-                pend.append((kf_i, aux))
-            self._note_inserted_keyframes(pend[0][0], len(pend))
-            kf_new = pend[-1][0]
-            sp.set(kf=kf_new)
+    def _commit_keyframes(self, pend, pose=None, queued_at=None):
+        """The bookkeeping after the backend work of keyframes `pend`
+        ((slot, backend aux) in insert order): one bundled readback of
+        their BoW rows, the newest's point count and `pose` (a device pose
+        the caller needs on the host, or None); the rows into the
+        place-recognition DB, the exact point count and a vocabulary
+        retrain where due; then loop closing on the newest keyframe.
+        `queued_at` (perf_counter when the backend was queued) times the
+        mapper cycle at the readback.  Returns (moved, pose on the host):
+        moved is True if loop closing / a global BA moved the poses."""
+        kf_new = pend[-1][0]
+        with profiling.span("sync.backend", kf=kf_new):
+            rows = torch.stack([aux["bow_row"] for _, aux in pend]) \
+                .cpu().numpy()
+            self._host_n_pt = int(pend[-1][1]["n_pt"])
+            if pose is not None:
+                pose = pose.cpu().numpy()
+        if queued_at is not None:
+            # readback ~= the queued backend finishing on the device
+            self._note_insert_cost(time.perf_counter() - queued_at)
+        for (kf_i, _), bow_row in zip(pend, rows):
+            self.db.add_row(kf_i, bow_row)
+        self.db.maybe_retrain(self.map)
+        moved = False
+        if self.loop_closer is not None:
             with profiling.span("sync.backend", kf=kf_new):
-                rows = torch.stack([a["bow_row"] for _, a in pend]) \
-                    .cpu().numpy()
-                self._host_n_pt = int(pend[-1][1]["n_pt"])
-                T_post = pend[-1][1]["pose"].cpu().numpy()
-            for (kf_i, _), bow_row in zip(pend, rows):
-                self.db.add_row(kf_i, bow_row)
-            # re-anchor the tracker's pose to the corrected map frame
-            j_last = jobs[-1][0]
-            self._last_insert_pose = T_post
-            self.last_T = (self.last_T @ np.linalg.inv(out.T[j_last])
-                           @ T_post).astype(np.float32)
+                covis_row = pend[-1][1]["covis_row"].cpu().numpy()
+            self.map, moved = self._close_loops(self.map, kf_new, covis_row)
+        if moved:
             self._kf_pose_dirty = True
-            self.db.maybe_retrain(self.map)
-            if self.loop_closer is not None:
-                with profiling.span("sync.backend", kf=kf_new):
-                    covis_row = pend[-1][1]["covis_row"].cpu().numpy()
-                self.map, _ = self._close_loops(self.map, kf_new, covis_row)
-        return kf_new
+        return moved, pose
+
+    def _insert_keyframe(self, frame: Frame, frame_id: int, T, kp_pt,
+                         depth: Optional[torch.Tensor] = None):
+        """Synchronous keyframe insert of `frame` at pose `T` (4x4) with
+        the keypoint-to-landmark bindings `kp_pt` and the per-keypoint
+        depth `depth` (None for mono): make room for one keyframe and N
+        points (`_ensure_capacity`; a compaction remaps `kp_pt` here and
+        the tracker's own bindings in `_remap_after_compact`), run the
+        backend, then `_commit_keyframes` — place recognition and loop
+        closing are the reference's LoopClosing thread, here a synchronous
+        stage after local mapping.  The reference's `_depth_for`, which
+        recomputes the depth where the chunk gave none, is not ported: its
+        one caller passes the chunk's depth whenever a sensor gives one, so
+        it never runs in either package.  Returns (slot, post-BA pose on
+        the host, moved)."""
+        # the tracker's own bindings (the per-frame caller's) move with the
+        # map in `_remap_after_compact`: no second readback for them
+        own = kp_pt is self.last_kp_pt
+        pt_map = self._ensure_capacity()
+        if pt_map is not None:
+            kp_pt = self.last_kp_pt if own \
+                else _remap_pts(kp_pt, pt_map, self.device)
+        kf_i = self._host_n_kf
+        with profiling.span("backend.insert", kf=kf_i):
+            self.map, _k, aux = lm.backend_insert(
+                self.cfg, self.map, frame,
+                torch.as_tensor(T, dtype=torch.float32, device=self.device),
+                frame_id, kp_pt, depth is not None, depth, self.db.vocab)
+        self._host_n_kf = kf_i + 1
+        self._kf_pose_dirty = True
+        moved, pose = self._commit_keyframes([(kf_i, aux)], pose=aux["pose"])
+        return kf_i, pose, moved
 
     def _note_inserted_keyframes(self, first_kf: int, count: int):
-        """Hook after the chunked driver's inserts of keyframe slots
-        first_kf .. first_kf + count - 1 (CoopAgent tags their ownership)."""
+        """Hook after the commit of keyframe slots first_kf .. first_kf +
+        count - 1, by every insert form (CoopAgent tags their
+        ownership)."""
 
     # ------------------------------------------------------------------
     def _need_keyframe(self, n_inliers: int,
@@ -911,19 +925,16 @@ class System:
             return False
         return bool((c1a or c1b or c1c) and c2)
 
-    def _ensure_capacity(self, kf_headroom: int = 1,
-                         pt_headroom: Optional[int] = None):
-        """At capacity watermarks (checked against the host mirrors of
-        n_kf / n_pt), compact culled slots away (models/compaction.py); if
-        that cannot free enough, double the capacity."""
+    def _ensure_capacity(self):
+        """At the capacity watermarks for one more keyframe and N points,
+        compact culled slots away (models/compaction.py); if that cannot
+        free enough, double the capacity.  Returns the compaction's
+        point-slot map (old slot -> new slot or -1), None where nothing
+        moved."""
+        if self._has_headroom(self.cfg.extractor.max_keypoints):
+            return None
         K = self.cfg.mapper.max_keyframes
         P = self.cfg.mapper.max_points
-        N = self.cfg.extractor.max_keypoints
-        if pt_headroom is None:
-            pt_headroom = N
-        if (self._host_n_kf + kf_headroom < K - 1
-                and self._host_n_pt + pt_headroom < 0.95 * P):
-            return
         old = self.map
         new_m, kf_map, pt_map = compaction.compact(self.cfg, old)
         self._remap_after_compact(old, new_m, kf_map, pt_map)
@@ -939,6 +950,7 @@ class System:
                                        grow_K or K, grow_P or P)
             self.map = m2
             self._set_cfg(cfg2)
+        return pt_map
 
     def _remap_after_compact(self, old, new_m, kf_map, pt_map):
         """Point every host-side slot reference at the compacted layout."""
@@ -967,16 +979,9 @@ class System:
                 new_traj.append((fid, int(alive_before[ref]), T_rel2))
         self.trajectory = new_traj
 
-        def remap_pts(a: torch.Tensor) -> torch.Tensor:
-            a = a.cpu().numpy()
-            return torch.from_numpy(np.where(
-                a >= 0, pt_map[np.maximum(a, 0)], -1).astype(np.int32)) \
-                .to(self.device)
-
         if self.last_kp_pt is not None:
-            self.last_kp_pt = remap_pts(self.last_kp_pt)
-        self._pending_pt_arrays = [remap_pts(a)
-                                   for a in self._pending_pt_arrays]
+            self.last_kp_pt = _remap_pts(self.last_kp_pt, pt_map,
+                                         self.device)
         self.last_ref_kf = remap_kf(self.last_ref_kf) \
             if self.last_ref_kf >= 0 else -1
         self.db.remap(kf_map, new_K=kf_map.shape[0])
@@ -989,50 +994,6 @@ class System:
         self.db.grow(cfg2.mapper.max_keyframes)
         if self.loop_closer is not None:
             self.loop_closer.cfg = cfg2
-
-    def _insert_keyframe(self, frame: Frame, frame_id: int) -> int:
-        """Per-frame keyframe insert: make room, run the backend, store the
-        BoW row, then place recognition and loop closing (the reference's
-        LoopClosing thread; here a synchronous stage after local mapping).
-        Uses self.last_kp_pt, which `_ensure_capacity` remaps if
-        it compacted the map."""
-        self._ensure_capacity()
-        has_depth = self._cur_depth is not None
-        kf_next = self._host_n_kf
-        with profiling.span("backend.insert", kf=kf_next):
-            m, k, aux = lm.backend_insert(
-                self.cfg, self.map, frame,
-                torch.as_tensor(self.last_T, dtype=torch.float32,
-                                device=self.device),
-                frame_id, self.last_kp_pt, has_depth, self._cur_depth,
-                self.db.vocab)
-        # one bundled readback: slot, point count, BoW row, pose
-        with profiling.span("sync.backend", kf=kf_next):
-            head = torch.stack([k.to(torch.int64),
-                                aux["n_pt"].to(torch.int64)])
-            (kf_i, n_pt), bow_row, pose = [
-                t.cpu().numpy() for t in (head, aux["bow_row"], aux["pose"])]
-        kf_i = int(kf_i)
-        self._host_n_kf = kf_i + 1
-        self._host_n_pt = int(n_pt)
-        self.db.add_row(kf_i, bow_row)
-        self.db.maybe_retrain(m)
-        if self.loop_closer is not None:
-            with profiling.span("sync.backend", kf=kf_i):
-                covis_row = aux["covis_row"].cpu().numpy()
-            m, pose_moved = self._close_loops(m, kf_i, covis_row)
-            if pose_moved:
-                # tracking references the corrected new-keyframe pose
-                pose = m.kf_pose[kf_i].cpu().numpy()
-        self.map = m
-        self._kf_pose_dirty = True
-        self.last_T = pose
-        self.last_kp_pt = m.kf_obs_pt[kf_i]
-        self.last_ref_kf = kf_i
-        self.frames_since_kf = 0
-        if self.stats:
-            self.stats[-1]["keyframe"] = True
-        return kf_i
 
     # ------------------------------------------------------------------
     def trajectory_poses(self):

@@ -33,9 +33,12 @@ The spans, at the layer boundaries of the replay and coop paths:
   sync.chunk           the chunk's result readback, the carry's readback
   sync.frame           the per-frame path's first readback (frame)
   backend.insert       each local_mapping.backend_insert call (kf)
-  backend.watermark    System._insert_keyframes_batch, compaction inside (kf)
+  backend.watermark    run_sequence's synchronous insert at a capacity
+                       watermark (System._insert_keyframe, compaction
+                       inside) (kf)
   flush                System._flush_pending with work pending (kf)
-  sync.backend         the queued backend's readbacks (kf)
+  sync.backend         System._commit_keyframes' readbacks, after the
+                       backend of every insert form (kf)
   loop.global_ba       a deferred global BA that runs
   loop.on_keyframe     LoopCloser.on_keyframe (kf)
   loop.detect          KeyFrameDatabase.detect_loop_candidates (kf)

@@ -4,16 +4,19 @@ coslam_tpu.
 `compact` / `grow` run on a map with culled keyframe and point slots;
 `_remap_after_compact` re-anchors a trajectory whose reference keyframe was
 culled; and a whole mapping run with K=6 keyframe slots reaches the
-capacity watermark, so the synchronous `_insert_keyframes_batch`,
-`compact`, `grow` and `_remap_after_compact` run inside `run_sequence`
-(the bench-size card run never reaches them).
+capacity watermark, so the synchronous `_insert_keyframe` (under its
+`backend.watermark` span), `compact`, `grow` and `_remap_after_compact` run
+inside `run_sequence` (the bench-size card run never reaches them).
 
 Bars: index maps and every integer field exact, floats bit-equal (compaction
-only moves rows); the K=6 run as tests/torch_mapping_common.py's bars."""
+only moves rows); the K=6 run as tests/torch_mapping_common.py's bars, and
+its `digests` and `span_sequence` (the same module) bit for bit as recorded
+before a change to the keyframe insert's bookkeeping."""
 
 import numpy as np
 import pytest
 import torch
+from torch.profiler import ProfilerActivity, profile
 
 from coslam_tpu import config as jcfg
 from coslam_tpu.models import compaction as jcomp
@@ -22,9 +25,21 @@ from coslam_tpu.models.system import System as JSystem
 from coslam_tpu_torch import config as tcfg
 from coslam_tpu_torch.models import compaction as tcomp
 from coslam_tpu_torch.models.system import System as TSystem
+from coslam_tpu_torch.utils import profiling
 
-from torch_mapping_common import (DrawRecorder, assert_runs_agree,
-                                  mapping_cfg, sequence)
+from torch_mapping_common import (DrawRecorder, assert_runs_agree, digests,
+                                  mapping_cfg, sequence, span_sequence)
+
+WATERMARK_DIGEST = {
+    "trajectory":
+        "41bab4473e39b8f61dd900064d15597d3ea627753a477c449fc927768b3c96ac",
+    "map": "641e057bfbdabcf2b57391af876042e592311e127d1afa6f2a8d9225b3ef4288",
+}
+WATERMARK_SPANS = {
+    "n": 40,
+    "sha256":
+        "0b2a949b5a257089c329bd57fecdbc712a03eb67a72084e4798f9c705abe1ef0",
+}
 
 
 def _t(a):
@@ -140,16 +155,25 @@ def test_capacity_watermark_run_matches_reference(watermark_reference):
                  enable_loop_closing=False)
     ts.init_draws = dict(js.draws)
     calls = []
-    batch = ts._insert_keyframes_batch
+    insert = ts._insert_keyframe
 
     def spy(*a, **kw):
         calls.append(ts._host_n_kf)
-        return batch(*a, **kw)
+        return insert(*a, **kw)
 
-    ts._insert_keyframes_batch = spy
-    ts.run_sequence(seq)
-    assert calls, "the synchronous batch insert never ran"
+    ts._insert_keyframe = spy
+    profiling.clear_spans()
+    with profile(activities=[ProfilerActivity.CPU]):
+        ts.run_sequence(seq)
+    recs = list(profiling.spans())
+    profiling.clear_spans()
+    # the per-frame insert calls the same method: the watermark's span
+    # shows which form ran
+    assert calls and any(r.name == "backend.watermark" for r in recs), \
+        "the synchronous watermark insert never ran"
     assert ts.cfg.mapper.max_keyframes == 12
     assert ts.map.kf_pose.shape[0] == ts.db.bows.shape[0] == 12
     assert_runs_agree(js, ts)
     np.testing.assert_allclose(ts.db.bows, js.db.bows, atol=1e-6)
+    assert digests(ts) == WATERMARK_DIGEST
+    assert span_sequence(recs) == WATERMARK_SPANS

@@ -411,6 +411,53 @@ def _inject(agent, exp, prefix):
     return tried
 
 
+def test_per_frame_insert_that_compacts_tags_and_publishes_its_keyframe():
+    """A CoopAgent's per-frame keyframe insert whose capacity watermark
+    compacts culled keyframe slots away (tests/test_torch_lifecycle.py's
+    configuration at K=6, with keyframe culling at 0.3 redundancy so that
+    culled slots exist when the watermark fires, frames 0-17): the new own
+    keyframe is tagged with the agent's id in the slot it got after the
+    compaction, and `drain_packets` publishes it."""
+    from coslam_tpu_torch.utils import synthetic
+
+    cfg = tcfg.SystemConfig(
+        camera=tcfg.CameraConfig(fx=260, fy=260, cx=160, cy=120, width=320,
+                                 height=240),
+        extractor=tcfg.ExtractorConfig(n_features=300, max_keypoints=256),
+        mapper=tcfg.MapperConfig(max_keyframes=6, max_points=2048,
+                                 triangulation_neighbors=4,
+                                 kf_culling_redundancy=0.3),
+        tracker=tcfg.TrackerConfig(init_min_matches=50, init_min_good=30))
+    traj = synthetic.make_trajectory(40, seed=7)
+    seq = synthetic.render_sequence(cfg.camera, traj,
+                                    synthetic.make_scene(500, seed=7))
+    a = tcoop.CoopAgent(cfg, agent_id=3, device="cpu")
+    shrunk = []
+    ensure = a._ensure_capacity
+
+    def spy(*args, **kw):
+        n_kf = a._host_n_kf
+        pt_map = ensure(*args, **kw)
+        if a._host_n_kf < n_kf:
+            shrunk.append((n_kf, a._host_n_kf))
+        return pt_map
+
+    a._ensure_capacity = spy
+    for i in range(18):
+        a.track_mono(seq[i], i)
+        if shrunk:
+            break
+    assert shrunk, "no per-frame insert compacted keyframe slots away"
+    assert a.stats[-1].get("keyframe")
+    n_kf = a._host_n_kf
+    assert n_kf == shrunk[0][1] + 1
+    assert a.kf_agent[n_kf - 1] == 3
+    kf_valid = a.map.kf_valid[:n_kf].cpu().numpy()
+    np.testing.assert_array_equal(a.kf_agent[:n_kf][kf_valid], 3)
+    sent = [p.frame_id for p in a.drain_packets(max_batch=n_kf)]
+    assert a.stats[-1]["frame"] in sent and len(sent) == kf_valid.sum()
+
+
 def test_cross_sim3_on_the_jax_state(exp):
     """The verification of the JAX run's merging call, its draws injected:
     the same foreign keyframe merges against the same candidate, S_w at

@@ -1,6 +1,10 @@
 """Shared pieces of the mapping parity tests (tests/test_torch_mapping.py,
 tests/test_torch_compaction.py): the workload, a reference System that
-records its initialisation draws, and the run-agreement bars."""
+records its initialisation draws and the run-agreement bars; and of the
+fences of the single-agent path (tests/test_torch_coop_fence.py,
+tests/test_torch_compaction.py): a run's digests and its span sequence."""
+
+import hashlib
 
 import jax
 import jax.numpy as jnp
@@ -19,6 +23,28 @@ torch.set_num_threads(1)
 
 FRAMES = 20
 CENTRE_BAR = 5e-3
+MAP_FIELDS = ("kf_pose", "kf_valid", "kf_frame_id", "kf_obs_pt", "pt_pos",
+              "pt_valid", "pt_desc", "n_kf", "n_pt")
+
+
+def digests(s) -> dict:
+    """sha256 over a port System's trajectory and its map's arrays."""
+    ids, T = s.trajectory_poses()
+    h = hashlib.sha256(np.asarray(ids, np.int64).tobytes())
+    h.update(np.ascontiguousarray(np.asarray(T, np.float32)).tobytes())
+    g = hashlib.sha256()
+    for f in MAP_FIELDS:
+        g.update(np.ascontiguousarray(getattr(s.map, f).cpu().numpy())
+                 .tobytes())
+    return {"trajectory": h.hexdigest(), "map": g.hexdigest()}
+
+
+def span_sequence(recs) -> dict:
+    """The count of `profiling.spans()` records and a sha256 over each
+    one's name, parent and ids, in the order they opened."""
+    seq = [(r.name, r.parent, sorted(r.ids.items())) for r in recs]
+    return {"n": len(seq),
+            "sha256": hashlib.sha256(repr(seq).encode()).hexdigest()}
 
 
 def mapping_cfg(mod, K=32):
